@@ -8,12 +8,23 @@ Phases, in order; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from ``pointcloudpdf_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on CUDA tensors at the
-   main path's shapes, with both times (CUDA events);
-4. the slice end to end: a seeded synthetic room in the S3DIS layout,
-   seeded random Seg50 + PDF-recognizer weights written through the bridge
-   as a JAX-layout checkpoint, ``tools/test_torch.py`` on the shipped
-   open-set config on the card with every kernel's launch count checked,
-   then one fragment re-run on the plain versions and compared.
+   main path's shapes, with both times (CUDA events) and the least time
+   the card could take for the same work (its bound);
+4. the serving slice end to end: a seeded synthetic room in the S3DIS
+   layout, seeded random Seg50 + PDF-recognizer weights written through
+   the bridge as a JAX-layout checkpoint, ``tools/test_torch.py`` on the
+   shipped open-set config on the card with every kernel's launch count
+   checked, then one fragment re-run on the plain versions and compared;
+5. the training slice end to end: synthetic rooms split into train areas
+   and a val area, ``tools/train_torch.py`` on the shipped config at full
+   width (a handful of steps, the last epoch past
+   ``recognizer.start_epoch``), the launch counts of every kernel, then
+   ``tools/test_torch.py`` on the checkpoint the trainer saved;
+6. three train steps from one seeded state on one fixed batch, on the
+   kernels and on the plain versions: the losses and the first step's
+   whole-network gradient compared, and every attention layer of that step
+   again on the inputs and the output gradient it had there, kernel
+   against plain version; one more step under bfloat16 autocast.
 
 The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -42,6 +53,17 @@ N_EXACT = 32768     # exact FPS: N points, N/4 picks
 ROOM = (5.0, 4.0, 3.0)  # metres: an S3DIS office
 MIN_FRAGMENT = 32768
 TOL_K3 = 1e-4       # relative to max |plain|: f32 sums in another order
+TOL_K4_X = 1e-4     # K4 forward and d x_q/x_k/x_v, relative to max |plain|
+TOL_K4_PARAM = 1e-3  # K4 parameter/affine gradients: sums over up to 1M rows
+TOL_STEPS = 1e-3    # losses of three train steps, kernels against plain versions
+STEPS_LR = 0.005    # the learning rate of those three steps
+TOL_GRAD = 0.25     # a whole-network gradient tensor, of its max |grad| (f32 noise)
+TOL_GRAD_WHOLE = 0.05  # the whole-network gradient, in L2
+TRAIN_ROOMS = 32    # synthetic rooms over the five train areas
+TRAIN_AREAS = ("Area_1", "Area_2", "Area_3", "Area_4", "Area_6")
+# published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 TOL_LOGITS = 1e-3   # relative to max |logit|, after 13 attention blocks
 TOL_SCORE = 1e-4
 
@@ -68,6 +90,15 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes, n_flops):
+    """The least time (ms) the card could take: the larger of the bytes
+    moved once over the memory rate and the f32 operations over the
+    non-tensor f32 peak; and which of the two it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +238,16 @@ def check_knn(dev, rng):
             plain_ms = cuda_ms(lambda: geometry.knn(q, r, k, m), 2)
         rows.append((name, ms, plain_ms))
         print(f"  K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # bound of the first case: every query against every valid ref, 8 f32
+    # operations a pair (3 sub, 3 mul, 2 add); coords, mask, idx and dist2
+    # moved once
+    pairs = float(N * mask.sum())
+    n_bytes = 2 * B * N * 12 + B * N + 2 * B * N * 16 * 4
+    bound_ms, bound_by = bound(n_bytes, 8 * pairs)
+    print(f"  K1 self k=16 bound: {pairs:.3e} pairs x 8 flop, {n_bytes:.3e} bytes "
+          f"-> {bound_ms:.3f} ms ({bound_by})")
     return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": f"self k=16, B=2 x N={N}", "rows": rows}
 
 
@@ -256,36 +296,80 @@ def check_fps(dev, rng):
         plain_ms = cuda_ms(blocked, 2)
     rows.append((f"blocked N={N} m={N // 4}", ms, plain_ms))
     print(f"  K2 blocked N={N} m={N // 4}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # bound of the blocked case: each of the 64 rounds of a window scans its
+    # 256 points once (8 flop a distance, a min and a compare); coords and
+    # mask read once, m indices and flags written
+    n_flops = B * N * 64 * 10
+    n_bytes = B * N * 13 + B * (N // 4) * 9
+    bound_ms, bound_by = bound(n_bytes, n_flops)
+    print(f"  K2 blocked bound: {n_flops:.3e} flop, {n_bytes:.3e} bytes "
+          f"-> {bound_ms:.5f} ms ({bound_by}); the 64 rounds are sequential")
     return {"max_abs_err": float(worst), "ms": rows[1][1], "plain_ms": rows[1][2],
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": f"blocked, B=2 x N={N}, m={N // 4}", "rows": rows}
+
+
+def attention_inputs(dev, rng, N, C, K, drop=0.0, grad=False):
+    """Inputs of the vector-attention entries at one stage's shape, B = 2:
+    a clustered cloud with a masked tail, its kNN table (``drop`` of the
+    valid slots masked too), random features, weights and affines."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import geometry
+
+    B, G = 2, C // 8
+    coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
+    coord = torch.from_numpy(coord).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    idx, d2 = geometry.knn(coord, coord, K, mask)
+    nmask = torch.isfinite(d2) & mask[..., None]
+    if drop:
+        nmask &= torch.from_numpy(rng.rand(B, N, K) >= drop).to(dev)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)
+        ).to(dev).requires_grad_(grad)
+
+    feats = [t(B, N, C) for _ in range(3)]
+    params = [t(3, 3, scale=0.5), t(3, scale=0.1), t(3, C, scale=0.5),
+              t(C, scale=0.1), t(C, G, scale=C ** -0.5), t(G, scale=0.1),
+              t(G, G, scale=G ** -0.5), t(G, scale=0.1),
+              (1 + 0.1 * t(3)).detach().requires_grad_(grad), t(3, scale=0.1),
+              (1 + 0.1 * t(C)).detach().requires_grad_(grad), t(C, scale=0.1),
+              (1 + 0.1 * t(G)).detach().requires_grad_(grad), t(G, scale=0.1)]
+    return feats, coord, idx, nmask, params
+
+
+def attention_bound(B, N, C, K, pairs, backward):
+    """Bound of the fused attention at one shape.  Bytes: the forward reads
+    x_q, x_k, x_v and writes out; the backward reads x_q, x_k, x_v and dout
+    and writes d x_q, d x_k, d x_v (it never reads out): 4 and 7 tensors of
+    B*N*C*4, besides coord, idx, nmask and the packed parameters (the
+    backward also writes their gradients).  Operations, per valid (query,
+    neighbour) pair: the chain is 2*(9 + 3C + C*G + G*G) + 10C flop; the
+    backward must recompute it once and run the two transposed products of
+    each matrix, three times the chain (a second recompute sweep is this
+    kernel's choice, not the function's)."""
+    G = C // 8
+    n_params = 18 + 6 * C + G * C + 3 * G + G * G + G
+    tensors = 7 if backward else 4
+    n_bytes = (tensors * B * N * C * 4 + B * N * 12 + B * N * K * 5
+               + n_params * 4 * (2 if backward else 1))
+    chain = 2 * (9 + 3 * C + C * G + G * G) + 10 * C
+    return n_bytes, chain * pairs * (3 if backward else 1)
 
 
 def check_attention(dev, rng):
     import torch
 
-    from pointcloudpdf_tpu_torch.ops import _cuda, geometry
+    from pointcloudpdf_tpu_torch.ops import _cuda
     from pointcloudpdf_tpu_torch.ops.vector_attention import vector_attention
 
     rows, worst = [], 0.0
     for name, N, C, K in (("stage-1 C=32 K=8", N_MAIN, 32, 8),
                           ("stage-4 C=256 K=16", N_MAIN // 64, 256, 16)):
-        B, G = 2, C // 8
-        coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
-        coord = torch.from_numpy(coord).to(dev)
-        mask = torch.from_numpy(mask).to(dev)
-        idx, d2 = geometry.knn(coord, coord, K, mask)
-        nmask = torch.isfinite(d2) & mask[..., None]
-
-        def t(*shape, scale=1.0):
-            return torch.from_numpy(
-                (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
-
-        feats = [t(B, N, C) for _ in range(3)]
-        params = [t(3, 3, scale=0.5), t(3, scale=0.1), t(3, C, scale=0.5),
-                  t(C, scale=0.1), t(C, G, scale=C ** -0.5), t(G, scale=0.1),
-                  t(G, G, scale=G ** -0.5), t(G, scale=0.1),
-                  1 + 0.1 * t(3), t(3, scale=0.1), 1 + 0.1 * t(C),
-                  t(C, scale=0.1), 1 + 0.1 * t(G), t(G, scale=0.1)]
+        feats, coord, idx, nmask, params = attention_inputs(dev, rng, N, C, K)
 
         def run():
             return vector_attention(*feats, coord, idx, nmask, *params)
@@ -303,22 +387,150 @@ def check_attention(dev, rng):
             ms = cuda_ms(run, 10)
             with _cuda.plain_versions():
                 plain_ms = cuda_ms(run, 3)
-        rows.append((name, ms, plain_ms))
-        print(f"  K3 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        n_bytes, n_flops = attention_bound(2, N, C, K, float(nmask.sum()), False)
+        bound_ms, bound_by = bound(n_bytes, n_flops)
+        rows.append((name, ms, plain_ms, bound_ms, bound_by))
+        print(f"  K3 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} bytes, {n_flops:.3e} flop)")
     return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
+            "bound_ms": rows[0][3], "bound_by": rows[0][4],
             "shape": f"stage-1, B=2 x N={N_MAIN}, C=32, K=8", "rows": rows}
 
 
+K4_LEAVES = ["x_q", "x_k", "x_v", "p1_w", "p1_b", "p2_w", "p2_b", "w1_w", "w1_b",
+             "w2_w", "w2_b", "bnp_scale", "bnp_shift", "bnw1_scale",
+             "bnw1_shift", "bnw2_scale", "bnw2_shift"]
+
+
+def compare_attention_train(name, feats, coord, idx, nmask, params, dout):
+    """K4 against the plain version's autograd on one set of inputs (leaf
+    tensors with requires_grad), with the pairs on a ReLU kink masked off
+    on both sides.  Returns the worst relative errors, the run to time and
+    the mask."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import _cuda
+    from pointcloudpdf_tpu_torch.ops import vector_attention as va
+
+    cleared = va.mask_off_relu_kinks(*feats, coord, idx, nmask, *params)
+    leaves = [*feats, *params]
+
+    def run():
+        out = va.vector_attention_train(*feats, coord, idx, cleared, *params)
+        return out.detach(), torch.autograd.grad(out, leaves, dout)
+
+    out, grads = run()
+    with _cuda.plain_versions():
+        ref, rgrads = run()
+    torch.cuda.synchronize()
+    worst = {"forward": float((out - ref).abs().max()) / float(ref.abs().max()),
+             "x": 0.0, "param": 0.0}
+    expect(worst["forward"] <= TOL_K4_X,
+           f"K4 {name}: forward rel err {worst['forward']:.3e} <= {TOL_K4_X} "
+           f"({int(nmask.sum() - cleared.sum())} of {int(nmask.sum())} pairs on a "
+           "ReLU kink masked off)")
+    rel = dict(zip(K4_LEAVES, rgrads))
+    for i, (key, g, r) in enumerate(zip(K4_LEAVES, grads, rgrads)):
+        # w2_b's exact gradient is 0 (a softmax ignores a shift of its
+        # logits): both sides hold rounding noise, held to w2_w's scale
+        gscale = float(rel["w2_w" if key == "w2_b" else key].abs().max())
+        kind, tol = ("x", TOL_K4_X) if i < 3 else ("param", TOL_K4_PARAM)
+        err = float((g - r).abs().max()) / gscale
+        worst[kind] = max(worst[kind], err)
+        if err > tol:
+            raise SmokeFailure(f"K4 {name}: d {key} rel err {err:.3e} > {tol}")
+    print(f"  ok: K4 {name}: d x rel err {worst['x']:.3e} <= {TOL_K4_X}, d params "
+          f"{worst['param']:.3e} <= {TOL_K4_PARAM}")
+    return worst, run, cleared
+
+
+def check_attention_train(dev, rng):
+    """K4 (training forward + backward) against the plain version's
+    autograd at three stages' shapes, ~5% of the neighbour slots and a tail
+    of rows masked."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import _cuda
+
+    rows, worst = [], {"forward": 0.0, "x": 0.0, "param": 0.0}
+    for name, N, C, K in (("stage-1 C=32 K=8", N_MAIN, 32, 8),
+                          ("stage-4 C=256 K=16", N_MAIN // 64, 256, 16),
+                          ("stage-5 C=512 K=16", N_MAIN // 256, 512, 16)):
+        feats, coord, idx, nmask, params = attention_inputs(
+            dev, rng, N, C, K, drop=0.05, grad=True)
+        dout = torch.from_numpy(
+            rng.standard_normal((2, N, C)).astype(np.float32)).to(dev)
+        errs, run, cleared = compare_attention_train(
+            name, feats, coord, idx, nmask, params, dout)
+        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+        ms = cuda_ms(run, 5)
+        with _cuda.plain_versions():
+            plain_ms = cuda_ms(run, 2)
+        pairs = float(cleared.sum())
+        fb, ff = attention_bound(2, N, C, K, pairs, False)
+        bb, bf = attention_bound(2, N, C, K, pairs, True)
+        bound_ms, bound_by = bound(fb + bb, ff + bf)
+        rows.append((name, ms, plain_ms, bound_ms, bound_by))
+        print(f"  K4 {name} forward+backward: kernels {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {fb + bb:.3e} bytes, "
+              f"{ff + bf:.3e} flop)")
+    print(f"  K4 worst rel err: forward {worst['forward']:.3e}, d x {worst['x']:.3e}, "
+          f"d params {worst['param']:.3e}")
+    return {"max_abs_err": max(worst.values()), "ms": rows[0][1],
+            "plain_ms": rows[0][2], "bound_ms": rows[0][3], "bound_by": rows[0][4],
+            "shape": f"stage-1 forward+backward, B=2 x N={N_MAIN}, C=32, K=8; "
+                     "max_abs_err is relative to each tensor's max",
+            "rows": rows}
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the slice end to end
+# phases 4-6: the slices end to end
+
+
+def reset_launches():
+    from pointcloudpdf_tpu_torch.ops import geometry, sampling
+    from pointcloudpdf_tpu_torch.ops import vector_attention as va
+
+    geometry.KNN_LAUNCHES = sampling.FPS_LAUNCHES = 0
+    va.ATTENTION_LAUNCHES = va.ATTENTION_TRAIN_LAUNCHES = 0
+    va.ATTENTION_BWD_LAUNCHES = 0
+
+
+def read_launches():
+    from pointcloudpdf_tpu_torch.ops import geometry, sampling
+    from pointcloudpdf_tpu_torch.ops import vector_attention as va
+
+    return {"knn": geometry.KNN_LAUNCHES, "fps": sampling.FPS_LAUNCHES,
+            "vector_attention": va.ATTENTION_LAUNCHES,
+            "vector_attention_train": (va.ATTENTION_TRAIN_LAUNCHES,
+                                       va.ATTENTION_BWD_LAUNCHES)}
+
+
+def run_tool(tool, argv):
+    """Run an entry point of tools/ in this process, as ``__main__``;
+    returns what it logged (the port's root logger is made once a process,
+    so only the first run would find its own ``train.log``)."""
+    import logging
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    logger = logging.getLogger("pointcloudpdf_tpu_torch")
+    logger.addHandler(handler)
+    old_argv, sys.argv = sys.argv, [f"tools/{tool}", *argv]
+    try:
+        runpy.run_path(os.path.join(ROOT, "tools", tool), run_name="__main__")
+    finally:
+        sys.argv = old_argv
+        logger.removeHandler(handler)
+    return "\n".join(lines)
 
 
 def run_slice(work):
     import torch
 
     from pointcloudpdf_tpu_torch.models import build_model
-    from pointcloudpdf_tpu_torch.ops import _cuda, geometry, sampling
-    from pointcloudpdf_tpu_torch.ops import vector_attention as va
+    from pointcloudpdf_tpu_torch.ops import _cuda
     from pointcloudpdf_tpu_torch.recognizers import build_recognizer
     from pointcloudpdf_tpu_torch.utils.config import Config
 
@@ -339,21 +551,16 @@ def run_slice(work):
             f"save_path={save_path}",
             f"data.test.data_root={data_root}"]
 
-    geometry.KNN_LAUNCHES = sampling.FPS_LAUNCHES = va.ATTENTION_LAUNCHES = 0
-    old_argv, sys.argv = sys.argv, argv
+    reset_launches()
     t0 = time.perf_counter()
-    try:
-        runpy.run_path(os.path.join(ROOT, "tools", "test_torch.py"),
-                       run_name="__main__")
-    finally:
-        sys.argv = old_argv
+    log = run_tool("test_torch.py", argv[1:])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"knn": geometry.KNN_LAUNCHES, "fps": sampling.FPS_LAUNCHES,
-                "vector_attention": va.ATTENTION_LAUNCHES}
+    launches = read_launches()
     print(f"  tools/test_torch.py: {wall:.3f} s; launches {launches}")
+    expect(launches.pop("vector_attention_train") == (0, 0),
+           "serving launched no training kernel")
 
-    log = open(os.path.join(save_path, "train.log")).read()
     expect("Val result: mIoU/mAcc/allAcc" in log, "mIoU line written")
     expect("Val result: aupr/auroc" in log, "AUPR/AUROC line written")
     pred = np.load(glob.glob(os.path.join(save_path, "result", "*_pred.npy"))[0])
@@ -410,6 +617,225 @@ def run_slice(work):
     return launches
 
 
+def run_training_slice(work):
+    """``tools/train_torch.py`` on the shipped config at full width, then
+    ``tools/test_torch.py`` on the checkpoint it saved."""
+    import re
+
+    import torch
+
+    data_root = os.path.join(work, "s3dis_train")
+    for area in (*TRAIN_AREAS, "Area_5"):
+        os.makedirs(os.path.join(data_root, area))
+    rng = np.random.RandomState(SEED + 1)
+    for i in range(TRAIN_ROOMS):
+        synthetic_room(rng, os.path.join(
+            data_root, TRAIN_AREAS[i % len(TRAIN_AREAS)], f"office_{i}.npz"))
+    n_val = synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"))
+    print(f"  {TRAIN_ROOMS} train rooms over {len(TRAIN_AREAS)} areas, 1 val room "
+          f"of {n_val} raw points")
+
+    epochs, start_epoch = 3, 2
+    for batch_size in (16, 8, 4, 2):
+        iters = 2  # a handful of steps: two iterations an epoch
+        save_path = os.path.join(work, f"exp_train_b{batch_size}")
+        argv = ["--config-file", CONFIG, "--device", DEVICE, "--options",
+                f"data_root={data_root}", f"save_path={save_path}",
+                f"data.train.data_root={data_root}",
+                f"data.val.data_root={data_root}",
+                f"data.test.data_root={data_root}", "num_worker=4",
+                f"batch_size={batch_size}", f"epoch={epochs}",
+                f"eval_epoch={epochs}", f"recognizer.start_epoch={start_epoch}",
+                f"train_subsampling_ratio={2 * batch_size / TRAIN_ROOMS}"]
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            log = run_tool("train_torch.py", argv)
+        except torch.cuda.OutOfMemoryError:
+            print(f"  batch size {batch_size} does not fit the card's memory")
+            torch.cuda.empty_cache()
+            continue
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        break
+    else:
+        raise SmokeFailure("no batch size fits the card's memory")
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  tools/train_torch.py: batch size {batch_size} (shipped: 16), "
+          f"{epochs} epochs x {iters} iterations, {wall:.1f} s, peak device "
+          f"memory {peak:.2f} GiB; launches {launches}")
+
+    steps = epochs * iters
+    step_log = "\n".join(line for line in log.splitlines() if "Train: [" in line)
+    expect(step_log.count("Train: [") == steps, f"{steps} train steps logged")
+    losses = [float(v) for v in re.findall(r" loss: ([-+.\w]+) ", step_log)]
+    expect(len(losses) == steps and all(np.isfinite(losses)),
+           f"every loss finite: {losses}")
+    rec = [float(v) for v in re.findall(r"loss_rec: ([-+.\w]+) ", step_log)]
+    expect(len(rec) == steps and all(np.isfinite(rec)),
+           f"loss_rec reported at every step and finite: {rec}")
+    # past start_epoch a batch's step runs one iteration late (the last at
+    # the end of the epoch), so iters - 1 of its lines carry the share of
+    # points that the pseudo-labelling flagged
+    flagged = [float(v) for v in re.findall(r"pseudo_flagged: ([-+.\w]+) ", step_log)]
+    expect(len(flagged) == iters - 1 and all(np.isfinite(flagged)),
+           f"pseudo_flagged reported past start_epoch: {flagged}")
+    batch_times = [float(v) for v in re.findall(r"Batch ([.\d]+) \(", step_log)]
+    print(f"  host clock per iteration (s): {batch_times}")
+    expect(len(re.findall(r"Val result: mIoU/mAcc/allAcc", log)) == epochs
+           and len(re.findall(r"Val result: aupr/auroc", log)) == epochs,
+           "evaluator reported mIoU and AUPR/AUROC after every epoch")
+    for line in re.findall(r"Val result: [^\n]*", log)[-2:]:
+        print("  " + line)
+    # 18 attention layers in Seg50: per train step 18 forward + 18 backward
+    # launches of K4; K3 serves the score passes and the evaluator
+    fwd, bwd = launches["vector_attention_train"]
+    expect(fwd == bwd == 18 * steps,
+           f"K4: {fwd} forward + {bwd} backward launches = 18 x {steps} steps")
+    k3_passes = iters + epochs  # score passes past start_epoch + val batches
+    expect(launches["vector_attention"] == 18 * k3_passes,
+           f"K3: {launches['vector_attention']} launches = 18 x ({iters} score "
+           f"passes + {epochs} evaluator forwards)")
+    expect(launches["knn"] > 0 and launches["fps"] > 0,
+           f"K1 {launches['knn']} and K2 {launches['fps']} launches")
+
+    weight = os.path.join(save_path, "model", "model_last.pth")
+    expect(os.path.isfile(weight), "checkpoint model_last.pth saved")
+    test_save = os.path.join(work, "exp_train_test")
+    log = run_tool("test_torch.py", [
+        "--config-file", CONFIG, "--device", DEVICE, "--options",
+        f"data_root={data_root}", f"weight={weight}", f"save_path={test_save}",
+        f"data.test.data_root={data_root}"])
+    expect("Val result: mIoU/mAcc/allAcc" in log and "Val result: aupr/auroc" in log,
+           "tools/test_torch.py loaded the trainer's checkpoint and tested it")
+    pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
+    expect(pred.shape == (n_val,) and pred.min() >= 0 and pred.max() < 13,
+           f"pred covers all {n_val} points of the val room")
+    return launches, data_root, batch_size, peak
+
+
+def compare_train_steps(work, data_root):
+    """Three train steps from one seeded state on one fixed batch, on the
+    kernels and on the plain versions; then one step under autocast."""
+    import copy
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.models.point_transformer import modules
+    from pointcloudpdf_tpu_torch.ops import _cuda
+
+    cfg = default_config_parser(CONFIG, {
+        "data_root": data_root, "data.train.data_root": data_root,
+        "data.val.data_root": data_root, "save_path": os.path.join(work, "exp_steps"),
+        "device": DEVICE, "batch_size": 2, "num_worker": 0, "evaluate": False,
+        "enable_amp": False, "hooks": [], "seed": SEED,
+        # at the shipped rate of 0.5 a step from random weights multiplies
+        # any difference some 50-fold (measured here: the losses of the two
+        # runs differed by 0, 1.1e-4 and 5.7e-3 of their value; at 0.01 by
+        # 0, 3.5e-5 and 8.2e-4), so three steps at that rate would compare
+        # two trajectories, not two sets of kernels
+        "optimizer.lr": STEPS_LR})
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+    input_dict = next(iter(trainer.train_loader))
+    batch = trainer.device_batch(input_dict)
+    print(f"  fixed batch: {tuple(batch['coord'].shape)}, valid points "
+          f"{input_dict['count'].tolist()}, lr {STEPS_LR}")
+    rec_w = trainer.recognizer.alpha
+    start = {n: copy.deepcopy(m.state_dict()) for n, m in trainer.modules().items()}
+
+    def three_steps(calls):
+        """The losses of three steps, the gradient the optimizer was handed
+        at the first, and (appended to ``calls``) the inputs and the output
+        gradient of every attention layer of that first step."""
+        for name, module in trainer.modules().items():
+            module.load_state_dict(start[name])
+        trainer.optimizer = trainer.build_optimizer()
+        trainer._host_step = 0
+        losses, grads = [], {}
+        optimizer_step = trainer.optimizer.step
+        attention = modules.vector_attention_train
+
+        def recording_step():
+            if not grads:
+                grads.update({n: p.grad.detach().clone()
+                              for n, p in trainer.named_parameters()})
+            return optimizer_step()
+
+        def recording_attention(*args, **kwargs):
+            out = attention(*args, **kwargs)
+            call = {"args": [a.detach() for a in args]}
+            out.register_hook(lambda g: call.__setitem__("dout", g.detach()))
+            calls.append(call)
+            return out
+
+        trainer.optimizer.step = recording_step
+        for i in range(3):
+            modules.vector_attention_train = (recording_attention if i == 0
+                                              else attention)
+            try:
+                trainer._dispatch_train(batch, rec_w)
+            finally:
+                modules.vector_attention_train = attention
+            losses.append(float(trainer.comm_info["model_output_dict"]["loss"]))
+        return losses, grads
+
+    calls = []
+    losses, grads = three_steps(calls)
+    with _cuda.plain_versions():
+        plosses, pgrads = three_steps([])
+    print(f"  losses on kernels {losses}, on plain versions {plosses}")
+    for a, b in zip(losses, plosses):
+        expect(abs(a - b) <= TOL_STEPS * abs(b),
+               f"loss {a:.6f} within {TOL_STEPS} of plain {b:.6f}")
+
+    # The first step's gradient, every parameter.  Its tolerance is the f32
+    # noise of this network's backward pass (its batch-statistic BatchNorms
+    # one after another, from random weights), measured on the CPU against
+    # a float64 gradient in tests/test_torch_train.py; a wrong or missing
+    # term is an error of order 1.  A bias ahead of a batch-statistic BatchNorm or the
+    # softmax has an exact gradient of 0, so a bias is held to the larger of
+    # its own and its weight's scale.
+    worst, diff2, norm2 = (0.0, None), 0.0, 0.0
+    for key, r in pgrads.items():
+        scale = float(r.abs().max())
+        weight = key[:-len("bias")] + "weight"
+        if key.endswith(".bias") and weight in pgrads and r.shape != pgrads[weight].shape:
+            scale = max(scale, float(pgrads[weight].abs().max()))
+        worst = max(worst, (float((grads[key] - r).abs().max()) / max(scale, 1e-30), key))
+        diff2 += float(((grads[key] - r).double() ** 2).sum())
+        norm2 += float((r.double() ** 2).sum())
+    whole = (diff2 / norm2) ** 0.5
+    expect(len(grads) == len(pgrads) and worst[0] <= TOL_GRAD,
+           f"first step's gradient, {len(pgrads)} tensors: worst {worst[0]:.3e} of its "
+           f"max |grad| at {worst[1]} <= {TOL_GRAD}")
+    expect(whole <= TOL_GRAD_WHOLE,
+           f"first step's gradient as a whole: {whole:.3e} of its length (L2) "
+           f"<= {TOL_GRAD_WHOLE}")
+
+    # What that noise cannot blur: each attention layer of the step on its
+    # own, on the inputs and the output gradient it had in the step.
+    expect(len(calls) == 18 and all("dout" in c for c in calls),
+           "18 attention layers of the first step recorded with their output gradients")
+    for i, call in enumerate(calls):
+        feats = [t.clone().requires_grad_(True) for t in call["args"][:3]]
+        coord, idx, nmask = call["args"][3:6]
+        params = [t.clone().requires_grad_(True) for t in call["args"][6:20]]
+        compare_attention_train(
+            f"layer {i + 1}/18 of the step, N={feats[0].shape[1]} "
+            f"C={feats[0].shape[2]} K={idx.shape[2]}",
+            feats, coord, idx, nmask, params, call["dout"])
+
+    trainer.cfg.enable_amp = True
+    trainer._dispatch_train(batch, rec_w)
+    amp_loss = float(trainer.comm_info["model_output_dict"]["loss"])
+    expect(np.isfinite(amp_loss), f"one step under bfloat16 autocast: loss {amp_loss:.4f}")
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -451,11 +877,16 @@ def main() -> int:
     print("[3] kernels against their plain versions")
     rng = np.random.RandomState(SEED)
     results = {"knn": check_knn(dev, rng), "fps": check_fps(dev, rng),
-               "vector_attention": check_attention(dev, rng)}
+               "vector_attention": check_attention(dev, rng),
+               "vector_attention_train": check_attention_train(dev, rng)}
 
-    print("[4] slice end to end")
     with tempfile.TemporaryDirectory() as work:
-        launches = run_slice(work)
+        print("[4] serving slice end to end")
+        serving = run_slice(work)
+        print("[5] training slice end to end")
+        launches, data_root, batch_size, peak = run_training_slice(work)
+        print("[6] three train steps, kernels against plain versions")
+        compare_train_steps(work, data_root)
 
     meta = {
         "knn": ("K1 exact kNN", "pointcloudpdf_tpu_torch/csrc/knn.cu",
@@ -465,14 +896,26 @@ def main() -> int:
         "vector_attention": ("K3 vector attention (inference)",
                              "pointcloudpdf_tpu_torch/csrc/vector_attention.cu",
                              "pointcloudpdf_tpu/ops/pallas_attention.py:173"),
+        "vector_attention_train": (
+            "K4 vector attention (training forward + backward)",
+            "pointcloudpdf_tpu_torch/csrc/vector_attention_bwd.cu",
+            "pointcloudpdf_tpu/ops/pallas_attention.py:527"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():
         r = results[key]
+        # launches: on the training slice's run (K4: forward + backward);
+        # library_ms: no single PyTorch call computes any of these functions
+        # (cdist + topk, a loop of argmax, a chain of gathers and matmuls)
+        n = launches[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[key],
+                        "replaces": replaces,
+                        "launches": sum(n) if isinstance(n, tuple) else n,
+                        "launches_serving": serving.get(key, 0),
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "shape": r["shape"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None,
+                        "shape": r["shape"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

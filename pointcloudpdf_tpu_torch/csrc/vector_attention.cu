@@ -1,4 +1,5 @@
-// K3: PT-v1 vector attention, inference forward.
+// K3: PT-v1 vector attention, forward (inference, and the training
+// forward of K4 with batch-statistic affines).
 //
 // Replaces the TPU kernel fused_vector_attention
 // (pointcloudpdf_tpu/ops/pallas_attention.py, _attn_kernel).  Per query
@@ -9,8 +10,9 @@
 //   a     = relu((r W_w1 + b_w1) * s_w2 + t_w2)                        (G)
 //   logit = a W_w2 + b_w2                                              (G)
 //   out[c] = sum_j softmax_j(logit)[c % G] * (x_v[j][c] + p_r[c])
-// with G = C / share.  The BatchNorm affines (s, t) arrive folded from the
-// running statistics.
+// with G = C / share.  The BatchNorm affines (s, t) arrive folded: from the
+// running statistics in eval, from the batch's masked statistics in
+// training (vector_attention_bwd.cu is the backward).
 //
 // Bound on the card: bytes of the neighbour gather.  Each query reads K
 // rows of x_k and x_v (8*K*C bytes) and writes C floats; the unfused
@@ -22,35 +24,15 @@
 // shared memory for the block (W_w1 transposed, so a warp's reads are
 // consecutive).  Sums are in f32.
 
-#include "common.cuh"
+#include "vector_attention.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 
-// offsets into the packed parameter buffer (floats)
-struct Layout {
-  int p1w, p1b, ps, pt, p2w, p2b, s1, t1, w1t, b1, s2, t2, w2, b2, total;
-};
-
+using Layout = pcpdf::AttnLayout;
 __host__ __device__ constexpr Layout layout(int C, int G) {
-  Layout l{};
-  l.p1w = 0;            // (3, 3) [in][out]
-  l.p1b = 9;            // (3)
-  l.ps = 12;            // (3)
-  l.pt = 15;            // (3)
-  l.p2w = 18;           // (3, C) [in][out]
-  l.p2b = l.p2w + 3 * C;
-  l.s1 = l.p2b + C;
-  l.t1 = l.s1 + C;
-  l.w1t = l.t1 + C;     // (G, C): W_w1 transposed
-  l.b1 = l.w1t + G * C;
-  l.s2 = l.b1 + G;
-  l.t2 = l.s2 + G;
-  l.w2 = l.t2 + G;      // (G, G) [in][out]
-  l.b2 = l.w2 + G * G;
-  l.total = l.b2 + G;
-  return l;
+  return pcpdf::attn_layout(C, G);
 }
 
 template <int C>

@@ -687,10 +687,10 @@ class GridSample:
         scaled = scaled - gmin
         min_coord = gmin * np.array(self.grid_size)
 
-        # native O(N) hash dedup when built (pointcloudpdf_tpu/native);
-        # falls back to the numpy argsort + unique path
+        # native O(N) hash dedup when built (pointcloudpdf_tpu_torch/native);
+        # else the numpy argsort + unique path, with the same result
         if self.hash is fnv_hash_vec:
-            from pointcloudpdf_tpu import native
+            from .. import native
 
             if native.available():
                 keys = native.fnv_hash(grid)

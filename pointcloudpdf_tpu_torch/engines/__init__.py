@@ -4,3 +4,4 @@ from .defaults import (
     default_setup,
 )
 from .test import TESTERS, OpenSegTester, SemSegTester, TesterBase
+from .train import TRAINERS, OpenSegTrainer, Trainer, TrainerBase

@@ -1,0 +1,11 @@
+from .builder import HOOKS, build_hooks
+from .default import HookBase
+from .misc import (
+    IterationTimer,
+    InformationWriter,
+    CheckpointSaver,
+    CheckpointLoader,
+    OpenSegCheckpointSaver,
+    OpenSegCheckpointLoader,
+)
+from .evaluator import SemSegEvaluator, OpenSegEvaluator

@@ -1,0 +1,220 @@
+"""Per-epoch evaluation hooks (counterpart of
+``pointcloudpdf_tpu/engines/hooks/evaluator.py``: ``SemSegEvaluator`` and
+``OpenSegEvaluator``).
+
+The forward runs on the trainer's device; the IoU histogram and the
+AUPR/AUROC records are numpy on the host, with padded points carrying
+``ignore_index``.  mIoU/mAcc/allAcc follow the reference
+(utils/misc.py:55-87).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ...utils import comm
+from ...utils.misc import (aupr_and_auroc, intersection_and_union_np,
+                           selected_mask)
+from .builder import HOOKS
+from .default import HookBase
+
+
+def _batch_counts(out, segment, mask, num_classes, ignore_index):
+    """(intersection, union, target) of one padded batch."""
+    pred = out["seg_logits"].argmax(dim=-1).cpu().numpy()
+    target = np.where(mask.cpu().numpy(), segment.cpu().numpy(), ignore_index)
+    return np.stack(intersection_and_union_np(
+        pred.reshape(-1), target.reshape(-1), num_classes, ignore_index))
+
+
+@HOOKS.register_module()
+class SemSegEvaluator(HookBase):
+    """Closed-set semantic segmentation mIoU/mAcc/allAcc
+    (reference evaluator.py:492-588)."""
+
+    def __init__(self, write_cls_iou: bool = True):
+        self.write_cls_iou = write_cls_iou
+
+    def after_epoch(self):
+        if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader:
+            self.eval()
+
+    def eval(self):
+        trainer = self.trainer
+        num_classes = trainer.cfg.data.num_classes
+        ignore_index = trainer.cfg.data.get("ignore_index", -1)
+        totals = np.zeros((3, num_classes), np.float64)
+        loss_sum, loss_cnt = 0.0, 0
+
+        for i, input_dict in enumerate(trainer.val_loader):
+            batch = trainer.device_batch(input_dict)
+            out = trainer.eval_step(batch)
+            if "origin_coord" in input_dict:
+                totals += self._origin_counts(
+                    input_dict, out, num_classes, ignore_index)
+            else:
+                totals += _batch_counts(out, batch["segment"], batch["mask"],
+                                        num_classes, ignore_index)
+            loss = float(trainer.model.loss(out["seg_logits"], batch["segment"]))
+            loss_sum += loss
+            loss_cnt += 1
+            if (i + 1) % 10 == 0:
+                trainer.logger.info(
+                    f"Test: [{i + 1}/{len(trainer.val_loader)}] Loss {loss:.4f}"
+                )
+
+        totals_all = np.sum(np.stack(comm.all_gather(totals)), axis=0)
+        inter, union, target = totals_all
+        iou_class = inter / np.maximum(union, 1e-10)
+        acc_class = inter / np.maximum(target, 1e-10)
+        m_iou = float(np.mean(iou_class))
+        m_acc = float(np.mean(acc_class))
+        all_acc = float(inter.sum() / max(target.sum(), 1e-10))
+
+        trainer.logger.info(
+            f"Val result: mIoU/mAcc/allAcc {m_iou:.4f}/{m_acc:.4f}/{all_acc:.4f}"
+        )
+        if self.write_cls_iou:
+            names = trainer.cfg.data.get("names", list(range(num_classes)))
+            for c in range(num_classes):
+                trainer.logger.info(
+                    f"Class_{c}-{names[c]} Result: iou/accuracy "
+                    f"{iou_class[c]:.4f}/{acc_class[c]:.4f}"
+                )
+        epoch = trainer.epoch + 1
+        if trainer.writer is not None:
+            trainer.writer.add_scalar("val/loss", loss_sum / max(loss_cnt, 1), epoch)
+            trainer.writer.add_scalar("val/mIoU", m_iou, epoch)
+            trainer.writer.add_scalar("val/mAcc", m_acc, epoch)
+            trainer.writer.add_scalar("val/allAcc", all_acc, epoch)
+        trainer.comm_info["current_metric_value"] = m_iou
+        trainer.comm_info["current_metric_name"] = "mIoU"
+
+    @staticmethod
+    def _origin_counts(input_dict, out, num_classes, ignore_index):
+        """Re-project voxel predictions to the original full-resolution
+        points with a 1-NN lookup, then score against ``origin_segment``
+        (the reference's "Interp." eval, hooks/evaluator.py:512-520), on
+        the host (cKDTree)."""
+        from scipy.spatial import cKDTree
+
+        pred = out["seg_logits"].argmax(dim=-1).cpu().numpy()
+        coord = np.asarray(input_dict["coord"])
+        counts = np.asarray(input_dict["count"]).reshape(-1)
+        ocoord = np.asarray(input_dict["origin_coord"])
+        oseg = np.asarray(input_dict["origin_segment"])
+        if ocoord.ndim == 2:
+            ocoord, oseg = ocoord[None], oseg[None]
+        totals = np.zeros((3, num_classes), np.float64)
+        for b in range(pred.shape[0]):
+            n = int(counts[b])
+            _, nn = cKDTree(coord[b, :n]).query(ocoord[b], k=1)
+            re_pred = pred[b, :n][nn]
+            totals += np.stack(intersection_and_union_np(
+                re_pred, oseg[b].reshape(-1), num_classes, ignore_index))
+        return totals
+
+    def after_train(self):
+        self.trainer.logger.info(
+            f"Best mIoU: {self.trainer.best_metric_value:.4f}"
+        )
+
+
+@HOOKS.register_module()
+class OpenSegEvaluator(HookBase):
+    """Open-set evaluation: known-class mIoU + unknown AUPR/AUROC.
+
+    Reference: pointcept/engines/hooks/evaluator.py:27-229.  The oracle
+    labels (with unknown classes intact) score the recognizer; the
+    closed-set histogram is reduced over known classes only; AUPR/AUROC
+    are per-batch records averaged across batches and processes.
+    """
+
+    def before_train(self):
+        cfg = self.trainer.cfg
+        self.num_classes = cfg.data.num_classes
+        self.ignore_index = cfg.data.get("ignore_index", -1)
+        self.unknown_label = cfg.unknown_label
+        self.mask_known = ~selected_mask(self.unknown_label, self.num_classes)
+
+    def after_epoch(self):
+        if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader:
+            self.eval()
+
+    def eval(self):
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        num_classes = self.num_classes
+        ignore_index = self.ignore_index
+        totals = np.zeros((3, num_classes), np.float64)
+        auprs, aurocs = [], []
+        loss_sum, loss_cnt = 0.0, 0
+
+        for i, input_dict in enumerate(trainer.val_loader):
+            batch = trainer.device_batch(input_dict)
+            out = trainer.eval_step(batch)
+            oracle = batch.get("segment_oracle", batch["segment"])
+            totals += _batch_counts(out, oracle, batch["mask"], num_classes,
+                                    ignore_index)
+            loss = float(trainer.model.loss(out["seg_logits"], batch["segment"]))
+            loss_sum += loss
+            loss_cnt += 1
+            # padded slots drop out of the score records through the
+            # oracle's ignore padding (collation pads label keys with
+            # ignore_index)
+            aupr, auroc = aupr_and_auroc(
+                out["score"].float().cpu().numpy(), oracle.cpu().numpy(),
+                self.unknown_label, ignore_index,
+            )
+            if aupr is not None:
+                auprs.append(aupr)
+                aurocs.append(auroc)
+            trainer.logger.info(
+                f"Test: [{i + 1}/{len(trainer.val_loader)}] Loss {loss:.4f}"
+            )
+
+        totals_all = np.sum(np.stack(comm.all_gather(totals)), axis=0)
+        records = comm.all_gather({"aupr": auprs, "auroc": aurocs})
+        auprs = [a for r in records for a in r["aupr"]]
+        aurocs = [a for r in records for a in r["auroc"]]
+        aupr_avg = float(np.mean(auprs)) if auprs else float("nan")
+        auroc_avg = float(np.mean(aurocs)) if aurocs else float("nan")
+
+        inter, union, target = totals_all
+        iou_class = inter / np.maximum(union, 1e-10)
+        acc_class = inter / np.maximum(target, 1e-10)
+        m_iou = float(np.mean(iou_class[self.mask_known]))
+        m_acc = float(np.mean(acc_class[self.mask_known]))
+        all_acc = float(
+            inter[self.mask_known].sum()
+            / max(target[self.mask_known].sum(), 1e-10)
+        )
+        trainer.logger.info(
+            f"Val result: mIoU/mAcc/allAcc {m_iou:.4f}/{m_acc:.4f}/{all_acc:.4f}."
+        )
+        trainer.logger.info(
+            f"Val result: aupr/auroc {aupr_avg:.4f}/{auroc_avg:.4f}"
+        )
+        names = trainer.cfg.data.get("names", list(range(num_classes)))
+        for c in range(num_classes):
+            trainer.logger.info(
+                f"Class_{c}-{names[c]} Result: iou/accuracy "
+                f"{iou_class[c]:.4f}/{acc_class[c]:.4f}"
+            )
+        epoch = trainer.epoch + 1
+        if trainer.writer is not None:
+            trainer.writer.add_scalar("val/loss", loss_sum / max(loss_cnt, 1), epoch)
+            trainer.writer.add_scalar("val/mIoU", m_iou, epoch)
+            trainer.writer.add_scalar("val/mAcc", m_acc, epoch)
+            trainer.writer.add_scalar("val/allAcc", all_acc, epoch)
+            trainer.writer.add_scalar("val/aupr", aupr_avg, epoch)
+            trainer.writer.add_scalar("val/auroc", auroc_avg, epoch)
+        trainer.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        trainer.comm_info["current_metric_value"] = [m_iou, aupr_avg, auroc_avg]
+        trainer.comm_info["current_metric_name"] = ["mIoU", "aupr", "auroc"]
+
+    def after_train(self):
+        best = self.trainer.best_metric_value
+        if isinstance(best, dict):
+            for name, value in best.items():
+                self.trainer.logger.info(f"Best {name}: {value:.4f}")

@@ -1,0 +1,537 @@
+"""Trainers: hook-driven epoch loops over an eager PyTorch train step.
+
+Counterpart of ``pointcloudpdf_tpu/engines/train.py`` (``TrainerBase``,
+``Trainer`` / ``DefaultTrainer``, ``OpenSegTrainer``) for one process on one
+device.  The JAX ``TrainState`` pytree becomes the modules, a
+``torch.optim`` optimizer and a host step counter; the jitted step becomes
+forward + loss + backward + ``optimizer.step()``; the learning rate is set
+on every parameter group from the schedule before each step.  The hook
+lifecycle (before/after train/epoch/step) and the ``comm_info`` keys match
+the reference.  Checkpoints keep the JAX package's tree
+(``state = {params, batch_stats, opt_state, step}`` through ``bridge``), so
+either package's testers load what this trainer saves.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..bridge import jax_to_state_dict, state_dict_to_jax
+from ..datasets import build_dataset, padded_collate_fn
+from ..datasets.loader import DataLoader, Subset
+from ..models import build_model
+from ..utils import comm
+from ..utils.checkpoint import load_weights_into
+from ..utils.events import EventStorage
+from ..utils.logger import get_root_logger
+from ..utils.optimizer import build_optimizer
+from ..utils.registry import Registry
+from ..utils.scheduler import build_scheduler
+from .hooks import HookBase, build_hooks
+from .test import resolve_device
+
+TRAINERS = Registry("trainers")
+
+
+class TrainerBase:
+    def __init__(self):
+        self.hooks = []
+        self.epoch = 0
+        self.start_epoch = 0
+        self.max_epoch = 0
+        self.comm_info: Dict = {}
+        self.storage: Optional[EventStorage] = None
+        self.logger = get_root_logger()
+
+    def register_hooks(self, hooks_cfg) -> None:
+        self.hooks = build_hooks(hooks_cfg)
+        for hook in self.hooks:
+            assert isinstance(hook, HookBase)
+            hook.trainer = self
+
+    def _call_hooks(self, stage: str) -> None:
+        for hook in self.hooks:
+            getattr(hook, stage)()
+
+    def train(self):
+        with EventStorage(self.start_epoch) as self.storage:
+            self._call_hooks("before_train")
+            for epoch in range(self.start_epoch, self.max_epoch):
+                self.epoch = epoch
+                if hasattr(self.train_loader, "set_epoch"):
+                    self.train_loader.set_epoch(epoch)
+                self._call_hooks("before_epoch")
+                for i, input_dict in enumerate(self.train_loader):
+                    self.comm_info["iter"] = i
+                    self.comm_info["input_dict"] = input_dict
+                    self._call_hooks("before_step")
+                    self.run_step()
+                    self._call_hooks("after_step")
+                self._call_hooks("after_epoch")
+                self.storage.reset_histories()
+            self._call_hooks("after_train")
+
+    def run_step(self):
+        raise NotImplementedError
+
+
+def _to_numpy(tree):
+    """Tensors of a nested dict/list -> numpy (host) arrays."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return tree
+
+
+def _to_tensor(tree):
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(np.array(tree))
+    if isinstance(tree, dict):
+        return {k: _to_tensor(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_tensor(v) for v in tree)
+    return tree
+
+
+@TRAINERS.register_module("DefaultTrainer")
+class Trainer(TrainerBase):
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        self.best_metric_value = -1e9
+        self.device = resolve_device(cfg.get("device", "cuda"))
+        # the JAX step runs its float32 matmuls at HIGHEST precision; TF32
+        # would keep ~3 decimal digits and break agreement with it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.logger.info(f"Device: {self.device}")
+        self.max_epoch = cfg.eval_epoch
+        self.model = self.build_model().to(self.device)
+        self.train_loader = self.build_train_loader()
+        self.val_loader = self.build_val_loader()
+        self.writer = self.build_writer()
+        self.total_steps = len(self.train_loader) * self.max_epoch
+        self.scheduler = self.build_scheduler()
+        self.optimizer = self.build_optimizer()
+        self._host_step = 0
+        n_params = sum(p.numel() for _, p in self.named_parameters())
+        self.logger.info(f"Initialized state: {n_params / 1e6:.2f}M params")
+        self.register_hooks(cfg.get("hooks"))
+
+    # -- building ----------------------------------------------------------
+    def build_model(self):
+        model = build_model(dict(self.cfg.model))
+        self.logger.info(f"Model: {self.cfg.model.type}")
+        return model
+
+    def build_train_loader(self):
+        dataset = build_dataset(dict(self.cfg.data.train))
+        collate = functools.partial(
+            padded_collate_fn,
+            mix_prob=self.cfg.get("mix_prob", 0.0),
+            ignore_index=self.cfg.data.get("ignore_index", -1),
+        )
+        return DataLoader(
+            dataset,
+            batch_size=self.cfg.batch_size,
+            shuffle=True,
+            drop_last=True,
+            collate_fn=collate,
+            num_workers=self.cfg.get("num_worker", 4),
+            seed=self.cfg.get("seed") or 0,
+            shard_id=comm.get_rank(),
+            num_shards=comm.get_world_size(),
+        )
+
+    def build_val_loader(self):
+        if not self.cfg.get("evaluate", True) or "val" not in self.cfg.data:
+            return None
+        dataset = build_dataset(dict(self.cfg.data.val))
+        collate = functools.partial(
+            padded_collate_fn,
+            ignore_index=self.cfg.data.get("ignore_index", -1),
+        )
+        return DataLoader(
+            dataset,
+            batch_size=self.cfg.get("batch_size_val") or 1,
+            shuffle=False,
+            drop_last=False,
+            collate_fn=collate,
+            num_workers=self.cfg.get("num_worker", 4),
+            shard_id=comm.get_rank(),
+            num_shards=comm.get_world_size(),
+        )
+
+    def build_scheduler(self):
+        return build_scheduler(
+            dict(self.cfg.scheduler), self.cfg.optimizer.lr, self.total_steps
+        )
+
+    def build_writer(self):
+        if not comm.is_main_process():
+            return None
+        try:
+            from tensorboardX import SummaryWriter
+
+            return SummaryWriter(self.cfg.save_path)
+        except Exception:
+            return None
+
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        """The modules this trainer owns, by checkpoint subtree name
+        ("" = the tree's root)."""
+        return {"": self.model}
+
+    def named_parameters(self) -> Iterator[Tuple[str, torch.nn.Parameter]]:
+        for prefix, module in self.modules().items():
+            for name, param in module.named_parameters():
+                yield (f"{prefix}.{name}" if prefix else name), param
+
+    def build_optimizer(self):
+        return build_optimizer(
+            dict(self.cfg.optimizer), self.named_parameters(),
+            param_dicts=self.cfg.get("param_dicts"),
+        )
+
+    def _amp(self):
+        """Mixed precision: with ``enable_amp`` the step's forward runs
+        under bfloat16 autocast (parameters stay f32; every kernel casts to
+        f32 at its boundary)."""
+        if self.cfg.get("enable_amp"):
+            return torch.autocast(self.device.type, dtype=torch.bfloat16)
+        return contextlib.nullcontext()
+
+    # -- state management ----------------------------------------------------
+    def state_dict(self) -> Dict:
+        """Host numpy trees in the JAX package's checkpoint layout."""
+        params, stats = {}, {}
+        for name, module in self.modules().items():
+            tree = state_dict_to_jax(module.state_dict())
+            if name:
+                params[name], stats[name] = tree["params"], tree["batch_stats"]
+            else:
+                params, stats = tree["params"], tree["batch_stats"]
+        return dict(
+            params=params,
+            batch_stats=stats,
+            opt_state=_to_numpy(self.optimizer.state_dict()),
+            step=self._host_step,
+        )
+
+    def load_state_dict(self, state: Dict, rewrite=None, strict=False,
+                        allow_partial_rows=False):
+        """Merge a checkpoint's ``{params, batch_stats}`` into the modules
+        (matching paths only; key rewrites and partial rows as the JAX
+        loader)."""
+        own = self.state_dict()
+        merged = load_weights_into(
+            {"params": own["params"], "batch_stats": own["batch_stats"]},
+            {"params": state.get("params", {}),
+             "batch_stats": state.get("batch_stats", {})},
+            rewrite=rewrite,
+            allow_partial_rows=allow_partial_rows,
+        )
+        for name, module in self.modules().items():
+            tree = ({k: merged[k].get(name, {}) for k in merged} if name
+                    else merged)
+            module.load_state_dict(jax_to_state_dict(tree), strict=True)
+
+    def resume_optimizer_state(self, state: Dict):
+        if "opt_state" in state:
+            self.optimizer.load_state_dict(_to_tensor(state["opt_state"]))
+        self._host_step = int(state.get("step", 0))
+
+    # -- the step -------------------------------------------------------------
+    def device_batch(self, input_dict: Dict) -> Dict:
+        batch = {
+            k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device, non_blocking=True)
+            for k, v in input_dict.items()
+            if isinstance(v, np.ndarray) and v.dtype != object
+        }
+        if "count" in batch:
+            n_pad = batch["coord"].shape[1]
+            batch["mask"] = (torch.arange(n_pad, device=self.device)[None, :]
+                             < batch["count"][:, None])
+        return batch
+
+    def _set_lr(self):
+        lr = float(self.scheduler(self._host_step))
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr * group.get("lr_scale", 1.0)
+        return lr
+
+    def _train_mode(self, training: bool):
+        for module in self.modules().values():
+            module.train(training)
+
+    def train_step(self, batch: Dict) -> Dict:
+        """Forward, loss, backward and one optimizer step; the output dict
+        holds 0-d tensors (no host synchronisation here)."""
+        self._train_mode(True)
+        self.optimizer.zero_grad(set_to_none=True)
+        with self._amp():
+            out = self.model(batch)
+            loss = self.model.loss(out["seg_logits"], batch["segment"])
+        loss.backward()
+        self.optimizer.step()
+        return {"loss": loss.detach()}
+
+    def eval_step(self, batch: Dict) -> Dict:
+        self._train_mode(False)
+        with torch.inference_mode():
+            return self.model(batch)
+
+    def run_step(self):
+        batch = self.device_batch(self.comm_info["input_dict"])
+        self._dispatch_train(batch)
+
+    def _dispatch_train(self, batch, *args):
+        lr = self._set_lr()
+        out = self.train_step(batch, *args)
+        self._host_step += 1
+        self.comm_info["model_output_dict"] = out
+        self.comm_info["lr"] = lr
+
+    def train(self):
+        self.logger.info(
+            f">>>>>>>>>>>>>>>> Start Training ({self.max_epoch} epochs, "
+            f"{len(self.train_loader)} iters/epoch) >>>>>>>>>>>>>>>>"
+        )
+        super().train()
+        self.logger.info("==>> Training done.")
+
+
+@TRAINERS.register_module("OpenSegTrainer")
+class OpenSegTrainer(Trainer):
+    """Open-set trainer: backbone + recognizer trained jointly.
+
+    Reference: pointcept/engines/train.py:313-499.  The forward-hook
+    machinery is the backbone's ``intermediates`` return; backbone and
+    recognizer share one optimizer (the reference's joint
+    build_open_optimizer, train.py:393-399); while the recognizer's loss
+    weight is zero its parameters take no gradient, so the optimizer skips
+    them and weight decay cannot move them (the reference's requires_grad
+    toggle).  The PDF pseudo-labelling runs on the host between a device
+    score pass and the train step.
+    """
+
+    def __init__(self, cfg):
+        from ..recognizers import build_recognizer
+
+        self.recognizer = build_recognizer(cfg.recognizer)
+        self._rec_module = (self.recognizer.model
+                            if getattr(self.recognizer, "has_params", False)
+                            else None)
+        if self._rec_module is not None:
+            self._rec_module.to(resolve_device(cfg.get("device", "cuda")))
+        super().__init__(cfg)
+        if self._rec_module is not None:
+            n_rec = sum(p.numel() for p in self._rec_module.parameters())
+            self.logger.info(f"Num params of recognizer: {n_rec}")
+        self.eval_only = cfg.get("eval_only", False)
+        self.best_metric_value = {}  # metric name -> best value
+        self._pending = None  # pipelined (batch, rec_w, flagged) awaiting train
+
+    def modules(self):
+        modules = {"model": self.model}
+        if self._rec_module is not None:
+            modules["recognizer"] = self._rec_module
+        return modules
+
+    def state_dict(self):
+        state = super().state_dict()
+        state["params"].setdefault("recognizer", {})
+        state["batch_stats"].setdefault("recognizer", {})
+        return state
+
+    # -- label handling ------------------------------------------------------
+    def device_batch(self, input_dict: Dict) -> Dict:
+        input_dict = dict(input_dict)
+        # open-set label rename (reference train.py:387-391): train on
+        # known-masked labels, keep the oracle for evaluation
+        if "segment_known" in input_dict:
+            input_dict["segment_oracle"] = input_dict["segment"]
+            input_dict["segment"] = input_dict["segment_known"]
+        if "segment_pseudo" not in input_dict and "segment" in input_dict:
+            input_dict["segment_pseudo"] = input_dict["segment"]
+        return super().device_batch(input_dict)
+
+    # -- data ------------------------------------------------------------------
+    def build_train_loader(self):
+        loader = super().build_train_loader()
+        # optional random subsampling of the train scenes (reference
+        # engines/train.py:428-436, train_subsampling_ratio)
+        ratio = self.cfg.get("train_subsampling_ratio", -1.0)
+        if ratio > 0.0:
+            n = len(loader.dataset)
+            keep = int(ratio * n)
+            rng = np.random.RandomState(self.cfg.get("seed") or 0)
+            picked = np.sort(rng.permutation(n)[:keep])
+            loader.dataset = Subset(loader.dataset, picked)
+            self.logger.info(
+                f"Train subsampling: kept {keep}/{n} scenes (ratio={ratio})"
+            )
+        return loader
+
+    # -- steps -------------------------------------------------------------------
+    def train_step(self, batch: Dict, rec_w: float = 0.0) -> Dict:
+        rec = self.recognizer
+        self._train_mode(True)
+        if self._rec_module is not None:
+            # frozen while its loss weight is zero: no gradient, so neither
+            # momentum nor weight decay moves it
+            self._rec_module.requires_grad_(rec_w > 0)
+        self.optimizer.zero_grad(set_to_none=True)
+        with self._amp():
+            out = self.model(batch)
+            seg_logits = out["seg_logits"]
+            seg_loss = self.model.loss(seg_logits, batch["segment"])
+            parts = {"seg_loss": seg_loss}
+            loss = seg_loss
+            if self._rec_module is not None:
+                rec_raw = self._rec_module(out["intermediates"])
+                rec_l = rec.rec_loss(seg_logits, rec_raw,
+                                     batch["segment_pseudo"])
+                loss = seg_loss + rec_w * rec_l
+                parts["loss_rec"] = rec_l
+            parts["loss"] = loss
+        loss.backward()
+        self.optimizer.step()
+        return {k: v.detach() for k, v in parts.items()}
+
+    def eval_step(self, batch: Dict) -> Dict:
+        self._train_mode(False)
+        with torch.inference_mode():
+            out = self.model(batch)
+            seg_logits = out["seg_logits"]
+            if self._rec_module is not None:
+                score = self.recognizer.score(
+                    seg_logits, self._rec_module(out["intermediates"]))
+            else:
+                score = self.recognizer.score(seg_logits)
+        return {"seg_logits": seg_logits, "score": score}
+
+    def pseudo_forward(self, batch: Dict):
+        """Eval forward -> the two (B, N) score sheets the host graph stage
+        reads (2 floats per point to fetch instead of the logits)."""
+        self._train_mode(False)
+        with torch.inference_mode():
+            out = self.model(batch)
+            return self.recognizer.pseudo_scores(out["seg_logits"],
+                                                 batch["mask"])
+
+    def _host_radii(self, coord_h, count_h):
+        """Per-sample ball radius: static, or the reference's adaptive
+        min-extent/16 (pointpdf_v1m1_base.py:118-137)."""
+        rec = self.recognizer
+        radii = np.full((coord_h.shape[0],), rec.kp_ball_radius, np.float64)
+        if rec.adaptive_radius:
+            for i in range(coord_h.shape[0]):
+                c = int(count_h[i])
+                if c:
+                    pts = coord_h[i, :c]
+                    radii[i] = float((pts.max(0) - pts.min(0) + 1e-6).min()
+                                     / 16.0)
+        return radii
+
+    # -- the step ---------------------------------------------------------------
+    #
+    # Pseudo-labelling pipeline (one-batch delay): the train step for batch
+    # t-1 is launched right after the score pass for batch t, so the device
+    # works on t-1's forward + backward WHILE the host waits for t's two
+    # score sheets (copied to pinned memory behind the score pass, ahead of
+    # the train step on the stream) and runs the graph stage (mean-shift ->
+    # MST -> GMM -> CC).  This only makes the scores one optimizer update
+    # staler than the reference's in-step computation.  Neighbour tables are
+    # lazy cKDTree rows (LazyNeighborTable): the chain reads ~2% of the
+    # cloud.
+    def _dispatch_train(self, batch, rec_w, pseudo_flagged=None):
+        super()._dispatch_train(batch, rec_w)
+        if pseudo_flagged is not None:
+            self.comm_info["model_output_dict"]["pseudo_flagged"] = pseudo_flagged
+
+    def _flush_pending(self):
+        if self._pending is not None:
+            batch, rec_w, flagged = self._pending
+            self._pending = None
+            self._dispatch_train(batch, rec_w, flagged)
+
+    def _call_hooks(self, stage: str) -> None:
+        # evaluation/checkpointing must see the fully-trained state
+        if stage in ("after_epoch", "after_train"):
+            self._flush_pending()
+        super()._call_hooks(stage)
+
+    def _fetch(self, *tensors):
+        """Start copying device tensors to the host through pinned memory;
+        returns the host tensors and a ``ready()`` that waits only for the
+        work queued before this call."""
+        if self.device.type != "cuda":
+            return list(tensors), lambda: None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done.synchronize
+
+    def run_step(self):
+        input_dict = self.comm_info["input_dict"]
+        batch = self.device_batch(input_dict)
+        rec = self.recognizer
+        rec.set_epoch(self.epoch)
+        rec_w = rec.loss_weight(self.epoch)
+        if not (getattr(rec, "has_pseudo_labeling", False)
+                and rec.needs_pseudo(self.epoch)):
+            self._dispatch_train(batch, rec_w)
+            return
+
+        # 1. device: score pass for THIS batch, and its copy to the host
+        (msp_h, ml_h), ready = self._fetch(*self.pseudo_forward(batch))
+        # 2. device: train step for the PREVIOUS batch (mask ready)
+        self._flush_pending()
+        # 3. host: the score sheets + graph stage, overlapped with step 2
+        ready()
+        msp, ml = msp_h.numpy(), ml_h.numpy()
+        coord_h = np.asarray(input_dict["coord"], np.float32)
+        count_h = np.asarray(input_dict["count"])
+        masks = rec.pseudo_masks_from_scores(
+            coord_h, msp, ml, count_h,
+            seed=(self.cfg.get("seed") or 0) + self._host_step,
+            neighbors=None,
+            ball_radius=self._host_radii(coord_h, count_h),
+        )
+        # host copy of the TRAIN labels (post label-rename semantics:
+        # device_batch substitutes segment_known when present)
+        segment = np.asarray(input_dict.get("segment_known",
+                                            input_dict["segment"]))
+        segment_pseudo = np.where(masks, rec.num_classes, segment)
+        batch["segment_pseudo"] = torch.from_numpy(segment_pseudo).to(
+            self.device, non_blocking=True)
+        # surfaced via InformationWriter so runs can see the
+        # pseudo-labelling fire
+        valid = np.arange(masks.shape[1])[None, :] < count_h.reshape(-1, 1)
+        flagged = float(masks[valid].mean()) if valid.any() else 0.0
+        self._pending = (batch, rec_w, flagged)
+
+    def train(self):
+        if self.eval_only:
+            self.logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+            with EventStorage(self.start_epoch) as self.storage:
+                self._call_hooks("before_train")
+                for epoch in range(self.start_epoch, self.max_epoch):
+                    self.epoch = epoch
+                    self._call_hooks("after_epoch")
+                self._call_hooks("after_train")
+            return
+        super().train()

@@ -2,8 +2,7 @@
 ``pointcloudpdf_tpu/models/default.py`` ``DefaultSegmentor``).
 
 The module owns the backbone (as ``backbone``, the reference's attribute
-name) and returns ``{seg_logits, intermediates}``.  The criteria stay a
-config until the training slice ports the losses.
+name) and returns ``{seg_logits, intermediates}``; ``loss`` applies the configured criteria.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ from typing import Any, Dict, Optional
 from torch import nn
 
 from .builder import MODELS, build_model
+from .losses import build_criteria
 
 
 @MODELS.register_module()
@@ -21,8 +21,11 @@ class DefaultSegmentor(nn.Module):
                  criteria: Optional[Any] = None):
         super().__init__()
         self.backbone = build_model(dict(backbone))
-        self.criteria = criteria
+        self.criteria = build_criteria(criteria)
 
     def forward(self, input_dict: Dict) -> Dict:
         seg_logits, intermediates = self.backbone(input_dict)
         return dict(seg_logits=seg_logits, intermediates=intermediates)
+
+    def loss(self, seg_logits, target):
+        return self.criteria(seg_logits, target)

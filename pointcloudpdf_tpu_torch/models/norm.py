@@ -36,25 +36,42 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         if self.training:
+            # statistics in f32 (a bfloat16 input under autocast too)
+            xf = x.float()
             dims = tuple(range(x.dim() - 1))
             if mask is None:
-                w = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+                w = torch.ones(x.shape[:-1], dtype=xf.dtype, device=x.device)
             else:
-                w = mask.expand(x.shape[:-1]).to(x.dtype)
+                w = mask.expand(x.shape[:-1]).to(xf.dtype)
             cnt = torch.clamp(w.sum(), min=1.0)
-            mean = (x * w[..., None]).sum(dim=dims) / cnt
-            var = (x * x * w[..., None]).sum(dim=dims) / cnt - mean * mean
+            mean = (xf * w[..., None]).sum(dim=dims) / cnt
+            var = (xf * xf * w[..., None]).sum(dim=dims) / cnt - mean * mean
             var = torch.clamp(var, min=0.0)
-            with torch.no_grad():
-                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * unbiased)
-                self.num_batches_tracked.add_(1)
+            self._update_running(mean, var, cnt)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * inv + self.bias
+        return ((x - mean) * inv + self.bias).to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, cnt):
+        # unbiased running variance, biased normalisation (torch)
+        unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean)
+        self.running_var.mul_(1 - m).add_(m * unbiased)
+        self.num_batches_tracked.add_(1)
+
+    def train_affine(self, mean, var, cnt):
+        """Training-mode BN folded into ``(scale, shift)`` over batch
+        statistics the caller computed (the fused attention's stats pass).
+        ``mean``/``var`` are the masked biased statistics over ``cnt``
+        entries; the running statistics update exactly as ``forward``
+        would.  Differentiable through mean and var."""
+        var = torch.clamp(var, min=0.0)
+        self._update_running(mean, var, cnt)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return scale, self.bias - mean * scale
 
     def affine(self):
         """Eval-mode BN folded into ``(scale, shift)``: y = x*scale + shift."""

@@ -18,7 +18,9 @@ from torch import nn
 
 from ...ops.geometry import grouping, interpolation, knn
 from ...ops.sampling import blocked_farthest_point_sampling
-from ...ops.vector_attention import vector_attention
+from ...ops.vector_attention import (attention_train_affines,
+                                      vector_attention,
+                                      vector_attention_train)
 from ..norm import MaskedBatchNorm
 from ..utils.structure import (Points, masked_max, masked_mean,
                                masked_softmax, where_valid)
@@ -29,9 +31,11 @@ class PointTransformerLayer(nn.Module):
     point_transformer_seg.py:19-78; mid_planes == out_planes).
 
     Eval runs the fused inference op (kernel K3 on the card) with the
-    BatchNorms folded from their running statistics.  Training runs the
-    unfused modules with masked batch statistics on every device, until
-    the kernel has a backward."""
+    BatchNorms folded from their running statistics.  Training on the
+    card folds them from the batch's masked statistics (a plain PyTorch
+    pass) and runs the fused op with its backward (kernels K3 and K4);
+    on the CPU it runs the unfused modules, which the tests hold the
+    fused route against."""
 
     def __init__(self, in_planes: int, out_planes: int, share_planes: int = 8,
                  nsample: int = 16):
@@ -61,18 +65,33 @@ class PointTransformerLayer(nn.Module):
         else:
             # the stage computes the table once for all its blocks
             idx, nmask = nbr
-        if self.training:
+        if self.training and x.device.type == "cpu":
             out = self._unfused(coord, x_q, x_k, x_v, idx, nmask)
+        elif self.training:
+            out = self._fused_train(coord, x_q, x_k, x_v, idx, nmask)
         else:
-            p1, bn_p, _, p2 = self.linear_p
-            bn_w1, _, w1, bn_w2, _, w2 = self.linear_w
             out = vector_attention(
-                x_q, x_k, x_v, coord, idx, nmask,
-                p1.weight.t(), p1.bias, p2.weight.t(), p2.bias,
-                w1.weight.t(), w1.bias, w2.weight.t(), w2.bias,
-                *bn_p.affine(), *bn_w1.affine(), *bn_w2.affine(),
-                share_planes=self.share_planes)
+                x_q, x_k, x_v, coord, idx, nmask, *self._weights(),
+                *self.linear_p[1].affine(), *self.linear_w[0].affine(),
+                *self.linear_w[3].affine(), share_planes=self.share_planes)
         return where_valid(mask, out)
+
+    def _weights(self):
+        """The four Linear (W, b) pairs as (in, out) matrices."""
+        p1, _, _, p2 = self.linear_p
+        _, _, w1, _, _, w2 = self.linear_w
+        return (p1.weight.t(), p1.bias, p2.weight.t(), p2.bias,
+                w1.weight.t(), w1.bias, w2.weight.t(), w2.bias)
+
+    def _fused_train(self, coord, x_q, x_k, x_v, idx, nmask):
+        """Batch-statistic affines, then the fused op with its backward."""
+        weights = self._weights()
+        affines = attention_train_affines(
+            x_q, x_k, coord, idx, nmask, *weights[:6],
+            self.linear_p[1], self.linear_w[0], self.linear_w[3])
+        return vector_attention_train(
+            x_q, x_k, x_v, coord, idx, nmask, *weights, *affines,
+            share_planes=self.share_planes)
 
     def _unfused(self, coord, x_q, x_k, x_v, idx, nmask):
         k_g = grouping(x_k, idx, coord, coord, with_coord=True)

@@ -34,7 +34,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -50,6 +50,9 @@ _SIGNATURES = {
     # xq, xk, xv, coord, idx, nmask, params, B, N, C, K, out, stream
     "pcpdf_vector_attention": [_P] * 7 + [_I] * 4 + [_P, _P],
     "pcpdf_vector_attention_params": [_I],
+    # xq, xk, xv, coord, idx, nmask, params, dout, B, N, C, K,
+    # dxq, dxk, dxv, dparams, stream
+    "pcpdf_vector_attention_bwd": [_P] * 8 + [_I] * 4 + [_P] * 5,
 }
 
 
@@ -78,21 +81,41 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels if this source tree has no build yet; returns
-    the library path.  The compiler's register/spill report is kept beside
+    the library path.  One ``nvcc -c`` per source, all started together,
+    then one link.  The compiler's register/spill report is kept beside
     the library as ``<name>.log``."""
     so = library_path()
     if os.path.isfile(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    stem = f"{so[:-3]}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{stem}.{os.path.basename(src)[:-3]}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        report.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(report[-1])
+    tmp = f"{stem}.tmp"
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        report.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(report[-1])
+    for _, obj, _ in jobs:
+        if os.path.isfile(obj):
+            os.remove(obj)
     with open(so[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        f.write("\n".join(report))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

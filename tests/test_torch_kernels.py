@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 kNN, K2 FPS, K3 vector attention) against
-their plain PyTorch versions on a GPU.
+"""The port's CUDA kernels (K1 kNN, K2 FPS, K3 vector attention, K4 its
+training forward + backward) against their plain PyTorch versions on a GPU.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips where no CUDA device is present.  The file imports
@@ -120,3 +120,132 @@ def test_attention_kernel_refuses_grad(dev):
     pts = Points(coord, torch.randn(1, 100, 32, device=dev), mask)
     with pytest.raises(RuntimeError, match="no backward"):
         layer(pts)
+
+
+# -- K4: training forward + backward ----------------------------------------
+
+
+def _train_case(dev, c, k, seed, n=1500, valid=(1500, 900), drop=0.05):
+    """Inputs of ``vector_attention_train`` as leaf tensors: features,
+    weights and affines with requires_grad, ~``drop`` of the neighbour slots
+    and a tail of rows masked."""
+    gen = torch.Generator().manual_seed(seed)
+    g = c // 8
+    coord, mask = _cloud(seed, len(valid), n, list(valid), dev)
+    idx, d2 = geometry.knn(coord, coord, k, mask)
+    keep = (torch.rand(idx.shape, generator=gen) >= drop).to(dev)
+    nmask = torch.isfinite(d2) & mask[..., None] & keep
+
+    def t(*shape, scale=1.0, shift=0.0):
+        v = shift + scale * torch.randn(shape, generator=gen)
+        return v.to(dev).requires_grad_(True)
+
+    feats = [t(len(valid), n, c) for _ in range(3)]
+    params = [t(3, 3, scale=0.5), t(3, scale=0.1), t(3, c, scale=0.5),
+              t(c, scale=0.1), t(c, g, scale=c ** -0.5), t(g, scale=0.1),
+              t(g, g, scale=g ** -0.5), t(g, scale=0.1),
+              t(3, scale=0.1, shift=1.0), t(3, scale=0.1),
+              t(c, scale=0.1, shift=1.0), t(c, scale=0.1),
+              t(g, scale=0.1, shift=1.0), t(g, scale=0.1)]
+    dout = torch.randn((len(valid), n, c), generator=gen).to(dev)
+    return feats, coord, idx, nmask, params, dout
+
+
+def _train_run(feats, coord, idx, nmask, params, dout):
+    out = va.vector_attention_train(*feats, coord, idx, nmask, *params)
+    grads = torch.autograd.grad(out, [*feats, *params], dout)
+    return out.detach(), grads
+
+
+def _off_kinks(case):
+    """The case with the pairs on a ReLU kink masked off (see
+    ``mask_off_relu_kinks``): about 1e-5 x (C + G + 3) of the pairs."""
+    feats, coord, idx, nmask, params, dout = case
+    return (feats, coord, idx,
+            va.mask_off_relu_kinks(*feats, coord, idx, nmask, *params),
+            params, dout)
+
+
+def _assert_train_close(got, want):
+    """Forward and d x_q/x_k/x_v within 1e-4, parameter and affine
+    gradients (sums over all rows in another order, with atomics) within
+    1e-3, each relative to the plain tensor's max magnitude, on inputs
+    with no pair on a ReLU kink (``_off_kinks``).  The gradient of w2_b is
+    zero in exact arithmetic (a softmax ignores a shift of its logits), so
+    both sides give rounding noise there: it is held to w2_w's scale."""
+    (out, grads), (ref, rgrads) = got, want
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    w2_w, w2_b = 3 + 6, 3 + 7
+    for i, (a, b) in enumerate(zip(grads, rgrads)):
+        assert a.shape == b.shape
+        scale = float(rgrads[w2_w if i == w2_b else i].abs().max())
+        tol = 1e-4 if i < 3 else 1e-3
+        assert float((a - b).abs().max()) <= tol * scale + 1e-12, i
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("k", [8, 16])
+def test_attention_train_kernel_matches_plain(dev, c, k):
+    case = _off_kinks(_train_case(dev, c, k, seed=c + k))
+    k3, fwd, bwd = (va.ATTENTION_LAUNCHES, va.ATTENTION_TRAIN_LAUNCHES,
+                    va.ATTENTION_BWD_LAUNCHES)
+    got = _train_run(*case)
+    with _cuda.plain_versions():
+        want = _train_run(*case)
+    assert (va.ATTENTION_LAUNCHES, va.ATTENTION_TRAIN_LAUNCHES,
+            va.ATTENTION_BWD_LAUNCHES) == (k3, fwd + 1, bwd + 1)
+    _assert_train_close(got, want)
+
+
+def test_attention_train_kernel_all_masked_batch(dev):
+    """No valid neighbour anywhere: output and every gradient are 0."""
+    feats, coord, idx, nmask, params, dout = _train_case(dev, 64, 16, seed=1)
+    out, grads = _train_run(feats, coord, idx, torch.zeros_like(nmask),
+                            params, dout)
+    assert (out == 0).all()
+    assert all((g == 0).all() for g in grads)
+
+
+def test_attention_train_kernel_query_without_neighbours(dev):
+    """Queries with no valid neighbour give 0 and take no gradient; the
+    others agree with the plain version."""
+    feats, coord, idx, nmask, params, dout = _train_case(dev, 32, 8, seed=2)
+    nmask = nmask.clone()
+    nmask[:, ::7] = False
+    case = _off_kinks((feats, coord, idx, nmask, params, dout))
+    got = _train_run(*case)
+    with _cuda.plain_versions():
+        want = _train_run(*case)
+    _assert_train_close(got, want)
+    assert (got[0][:, ::7] == 0).all() and (got[1][0][:, ::7] == 0).all()
+
+
+def test_attention_train_layer_matches_plain(dev):
+    """A training layer on the card (batch-statistic affines + K3/K4)
+    against the same layer on the plain versions: output, running
+    statistics and parameter gradients."""
+    results = []
+    for plain in (False, True):
+        torch.manual_seed(3)
+        layer = PointTransformerLayer(64, 64, nsample=16).to(dev).train()
+        coord, mask = _cloud(7, 2, 2000, [2000, 1200], dev)
+        feat = torch.randn((2, 2000, 64), generator=torch.Generator().manual_seed(4)).to(dev)
+        if plain:
+            with _cuda.plain_versions():
+                out = layer(Points(coord, feat, mask))
+        else:
+            out = layer(Points(coord, feat, mask))
+        out.square().sum().backward()
+        results.append((out.detach(), {n: p.grad for n, p in layer.named_parameters()},
+                        dict(layer.named_buffers())))
+    (out, grads, bufs), (ref, rgrads, rbufs) = results
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    # 1e-3 of each gradient's max, plus 1e-5 of the largest gradient: the
+    # biases of linear_q / linear_k / linear_p.0 / linear_w.2 feed a
+    # batch-statistic BatchNorm, so their exact gradient is 0 and both
+    # sides give rounding noise
+    floor = 1e-5 * max(float(g.abs().max()) for g in rgrads.values())
+    for name, g in rgrads.items():
+        assert float((grads[name] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + floor, name
+    for name, b in rbufs.items():
+        torch.testing.assert_close(bufs[name], b, rtol=1e-5, atol=1e-6)

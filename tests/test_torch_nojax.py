@@ -1,7 +1,9 @@
 """The PyTorch port runs where JAX is not installed (the GPU machine has
 none): with ``import jax`` / ``import flax`` made to fail, the whole
-package imports, the shipped open-set config loads and a Seg26 forward
-runs on the CPU.
+package imports, the shipped open-set config loads, a Seg26 forward runs
+on the CPU and the open-set trainer takes one training step.  The port's
+own copy of the native voxel hash is held against the numpy branch here
+too.
 """
 
 import os
@@ -60,6 +62,37 @@ with torch.inference_mode():
     score = rec.score(out["seg_logits"], rec.model(out["intermediates"]))
 assert out["seg_logits"].shape == (1, n, 13) and score.shape == (1, n)
 assert torch.isfinite(out["seg_logits"]).all() and torch.isfinite(score).all()
+
+# one open-set training step of Seg26 + the PDF recognizer
+from pointcloudpdf_tpu_torch.datasets import DATASETS
+from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+
+class _Scenes:
+    def __init__(self, **kwargs):
+        pass
+
+    def __len__(self):
+        return 4
+
+
+DATASETS.register_module("NoJaxScenes", module=_Scenes)
+cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                     "enable_amp": False, "evaluate": False, "hooks": [],
+                     "epoch": 2, "eval_epoch": 2, "recognizer.start_epoch": 0})
+cfg.data.train = dict(type="NoJaxScenes")
+trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+segment = rng.randint(0, 13, (2, n)).astype(np.int64)
+input_dict = dict(coord=rng.rand(2, n, 3).astype(np.float32),
+                  feat=rng.rand(2, n, 6).astype(np.float32),
+                  segment=segment, segment_known=np.where(segment == 5, -1, segment),
+                  count=np.array([n, 400], np.int32))
+before = trainer.model.backbone.cls[3].weight.detach().clone()
+trainer._dispatch_train(trainer.device_batch(input_dict), 0.01)
+out = trainer.comm_info["model_output_dict"]
+assert all(np.isfinite(float(out[k])) for k in ("loss", "seg_loss", "loss_rec"))
+assert not torch.equal(before, trainer.model.backbone.cls[3].weight)
+assert trainer.state_dict()["step"] == 1
 assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)
 print("NOJAX_OK")
 """
@@ -75,16 +108,66 @@ def test_port_runs_without_jax():
 
 
 @pytest.mark.parametrize("path", [
-    "pointcloudpdf_tpu_torch", "chip_smoke.py", "tools/test_torch.py"])
+    "pointcloudpdf_tpu_torch", "chip_smoke.py", "tools/test_torch.py",
+    "tools/train_torch.py"])
 def test_no_jax_import_in_port_sources(path):
-    # the JAX package is off limits too, but for its jax-free native module
+    # the JAX package is off limits too, every module of it
     pattern = re.compile(r"^\s*(import|from) (jax|flax|pointcloudpdf_tpu\b(?!_torch))")
-    allowed = re.compile(r"^\s*from pointcloudpdf_tpu import native$")
     full = os.path.join(ROOT, path)
     files = [full] if full.endswith(".py") else [
         os.path.join(d, f) for d, _, fs in os.walk(full) for f in fs
         if f.endswith(".py")]
     hits = [f"{f}:{i + 1}: {line.rstrip()}" for f in files
             for i, line in enumerate(open(f))
-            if pattern.match(line) and not allowed.match(line.rstrip())]
+            if pattern.match(line)]
     assert not hits, hits
+
+
+def test_native_copy_matches_numpy_branch():
+    """The port's own voxel-hash library (built from its csrc at first use)
+    against the numpy argsort/unique branch of GridSample: the same FNV keys,
+    the same grouping of points by voxel, the same sampled cloud."""
+    import numpy as np
+
+    from pointcloudpdf_tpu_torch import native
+    from pointcloudpdf_tpu_torch.datasets import transform
+
+    if not native.available():
+        pytest.skip("no host C++ compiler to build the native library")
+    assert os.path.dirname(native._SO_PATH).endswith(
+        os.path.join("pointcloudpdf_tpu_torch", "_build"))
+    rng = np.random.RandomState(0)
+    grid = rng.randint(0, 12, (4000, 3)).astype(np.int32)
+    keys = native.fnv_hash(grid)
+    np.testing.assert_array_equal(
+        keys, transform.fnv_hash_vec(grid).astype(np.uint64))
+    order, inverse, counts, starts = native.voxel_unique(keys)
+    uniq, inv_np, cnt_np = np.unique(keys, return_inverse=True,
+                                     return_counts=True)
+    assert len(counts) == len(uniq) and counts.sum() == len(grid)
+    # the same partition: voxel ids differ by a relabelling only
+    relabel = np.full(len(counts), -1)
+    relabel[inverse] = inv_np
+    np.testing.assert_array_equal(relabel[inverse], inv_np)
+    np.testing.assert_array_equal(counts, cnt_np[relabel])
+    np.testing.assert_array_equal(np.diff(starts), counts)
+    assert (np.diff(inverse[order]) >= 0).all()
+
+    coord = rng.rand(3000, 3).astype(np.float32) * 3
+    sample = transform.GridSample(grid_size=0.1, hash_type="fnv", mode="test",
+                                  keys=("coord",), return_grid_coord=True)
+    with_native = sample(dict(coord=coord.copy()))
+    old = native.available
+    native.available = lambda: False
+    try:
+        with_numpy = sample(dict(coord=coord.copy()))
+    finally:
+        native.available = old
+    # fragments of one point per voxel that together cover the cloud
+    assert len(with_native) == len(with_numpy)
+    for parts in (with_native, with_numpy):
+        np.testing.assert_array_equal(
+            np.unique(np.concatenate([p["index"] for p in parts])),
+            np.arange(3000))
+    assert ([len(p["index"]) for p in with_native]
+            == [len(p["index"]) for p in with_numpy])

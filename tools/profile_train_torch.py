@@ -1,0 +1,204 @@
+"""Where one training step of the PyTorch port goes, on one GPU.
+
+    python3 tools/profile_train_torch.py [--batch-size 16] [--steps 3] [--out FILE]
+
+Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``), an
+``OpenSegTrainer`` on the shipped open-set config (Seg50 + PDF recognizer,
+autocast as shipped) and prints, for one fixed batch: milliseconds per
+train step (CUDA events and host clock), the device's busy time and idle
+share and its split by kind of kernel (``torch.profiler``), the forward
+share of the batch-statistics pass (CUDA events around
+``attention_train_affines``), peak device memory, and the host side of the
+pseudo-label pipeline (score pass, fetch, graph stage) beside the train
+step it is meant to hide behind.  ``--out`` also writes the numbers as
+JSON.  Needs a CUDA device.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+KINDS = (
+    ("K1 kNN", ("knn_kernel",)),
+    ("K2 FPS", ("fps_",)),
+    ("K4 backward", ("attn_bwd_kernel",)),
+    ("K4 forward / K3", ("attn_kernel",)),
+    ("GEMM", ("gemm", "cutlass", "cublas", "gemv")),
+    ("sort", ("sort", "radix")),
+    ("optimizer", ("multi_tensor", "foreach", "fused_sgd")),
+    ("gather/scatter", ("index", "gather", "scatter", "take_along")),
+    ("reduce", ("reduce",)),
+)
+
+
+def kind_of(name):
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "element-wise and other"
+
+
+def main():
+    import torch
+
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--out", default=None, help="write the numbers here as JSON")
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--no-amp", action="store_true")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card)
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.ops import vector_attention as va
+    from pointcloudpdf_tpu_torch.models.point_transformer import modules
+
+    result = {"card": card, "batch_size": args.batch_size, "amp": not args.no_amp}
+    with tempfile.TemporaryDirectory() as work:
+        data_root = os.path.join(work, "s3dis")
+        rng = np.random.RandomState(1)
+        for area in (*chip_smoke.TRAIN_AREAS, "Area_5"):
+            os.makedirs(os.path.join(data_root, area))
+        for i in range(2 * args.batch_size):
+            chip_smoke.synthetic_room(rng, os.path.join(
+                data_root, chip_smoke.TRAIN_AREAS[i % 5], f"office_{i}.npz"))
+        cfg = default_config_parser(chip_smoke.CONFIG, {
+            "data_root": data_root, "data.train.data_root": data_root,
+            "data.val.data_root": data_root, "save_path": os.path.join(work, "exp"),
+            "device": "cuda", "batch_size": args.batch_size, "num_worker": 0,
+            "evaluate": False, "hooks": [], "seed": 0,
+            "enable_amp": not args.no_amp})
+        torch.manual_seed(0)
+        trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+        loader = iter(trainer.train_loader)
+        input_dict = next(loader)
+        batch = trainer.device_batch(input_dict)
+        rec_w = trainer.recognizer.alpha
+        result["shape"] = list(batch["coord"].shape)
+        result["valid_points"] = input_dict["count"].tolist()
+        print(f"batch {result['shape']}, valid points {result['valid_points']}")
+
+        # the batch-statistics pass, forward, by CUDA events
+        spans = []
+        plain_affines = modules.attention_train_affines
+
+        def timed_affines(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = plain_affines(*a, **k)
+            end.record()
+            spans.append((start, end))
+            return out
+
+        def step():
+            trainer._dispatch_train(batch, rec_w)
+
+        step()  # warm-up: builds the kernels, allocates
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        modules.attention_train_affines = timed_affines
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(args.steps):
+            step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+        modules.attention_train_affines = plain_affines
+        result["step_ms_events"] = start.elapsed_time(end) / args.steps
+        result["step_ms_host"] = host_ms
+        result["stats_pass_forward_ms"] = sum(
+            a.elapsed_time(b) for a, b in spans) / args.steps
+        result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"train step: {result['step_ms_events']:.1f} ms (CUDA events), "
+              f"{host_ms:.1f} ms (host clock, synced at the end of {args.steps}); "
+              f"stats pass forward {result['stats_pass_forward_ms']:.1f} ms; "
+              f"peak memory {result['peak_memory_gib']:.2f} GiB")
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kinds, launches = {}, {}
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA]
+        for ev in kernels:
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            if dev_us <= 0:
+                continue
+            k = kind_of(ev.key)
+            kinds[k] = kinds.get(k, 0.0) + dev_us / 1e3
+            launches[k] = launches.get(k, 0) + ev.count
+        busy = sum(kinds.values())
+        result.update(profiled_wall_ms=wall_ms, device_busy_ms=busy,
+                      idle_share_profiled=1 - busy / wall_ms,
+                      idle_share_unprofiled=1 - busy / host_ms,
+                      by_kind_ms=kinds, launches_by_kind=launches)
+        print(f"profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
+              f"idle share {1 - busy / wall_ms:.3f} (profiled), "
+              f"{1 - busy / host_ms:.3f} against the unprofiled host clock")
+        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+            print(f"  {k:26s} {ms:9.2f} ms  {100 * ms / busy:5.1f}%  "
+                  f"{launches[k]} launches")
+        top = sorted(kernels, key=lambda e: -getattr(
+            e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))[:16]
+        for ev in top:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            print(f"    {us / 1e3:9.2f} ms x{ev.count:5d}  {ev.key[:90]}")
+
+        # the pseudo-label pipeline: score pass, fetch, host graph stage
+        va_before = va.ATTENTION_LAUNCHES
+        t0 = time.perf_counter()
+        (msp_h, ml_h), ready = trainer._fetch(*trainer.pseudo_forward(batch))
+        ready()
+        score_ms = (time.perf_counter() - t0) * 1e3
+        coord_h = np.asarray(input_dict["coord"], np.float32)
+        count_h = np.asarray(input_dict["count"])
+        t0 = time.perf_counter()
+        masks = trainer.recognizer.pseudo_masks_from_scores(
+            coord_h, msp_h.numpy(), ml_h.numpy(), count_h, seed=0, neighbors=None,
+            ball_radius=trainer._host_radii(coord_h, count_h))
+        graph_ms = (time.perf_counter() - t0) * 1e3
+        result.update(score_pass_and_fetch_ms=score_ms, graph_stage_ms=graph_ms,
+                      pseudo_flagged=float(masks.mean()),
+                      k3_launches_score_pass=va.ATTENTION_LAUNCHES - va_before,
+                      graph_stage_hidden=bool(graph_ms <= result["step_ms_events"]))
+        print(f"pseudo-label pipeline: score pass + fetch {score_ms:.1f} ms, host "
+              f"graph stage {graph_ms:.1f} ms (train step {result['step_ms_events']:.1f} "
+              f"ms: hidden = {result['graph_stage_hidden']}), flagged "
+              f"{result['pseudo_flagged']:.4f}")
+
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps({k: v for k, v in result.items()
+                      if not isinstance(v, (dict, list))}))
+
+
+if __name__ == "__main__":
+    main()
