@@ -24,7 +24,12 @@ Phases, in order; any failure exits non-zero:
    kernels and on the plain versions: the losses and the first step's
    whole-network gradient compared, and every attention layer of that step
    again on the inputs and the output gradient it had there, kernel
-   against plain version; one more step under bfloat16 autocast.
+   against plain version; one more step under bfloat16 autocast;
+7. the Stratified Transformer serving slice end to end: seeded random
+   ST-v1m1 + ST-recognizer weights through the bridge,
+   ``tools/test_torch.py`` on the shipped S3DIS ST config over the
+   synthetic room, the launch counts of a forward (K5 ten times, K6 twice,
+   K1 and K2 as the modules imply), then one fragment on the plain versions.
 
 The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -46,6 +51,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "s3dis",
                       "openseg-pt-v1-0-pointpdf-v1m1-base.py")
+ST_CONFIG = os.path.join(ROOT, "configs", "s3dis",
+                         "openseg-st-v1m1-0-origin-pointpdf-v1m1-base.py")
 SEED = 0
 DEVICE = "cuda"
 N_MAIN = 65536      # the bucket of a full-size S3DIS fragment
@@ -53,6 +60,8 @@ N_EXACT = 32768     # exact FPS: N points, N/4 picks
 ROOM = (5.0, 4.0, 3.0)  # metres: an S3DIS office
 MIN_FRAGMENT = 32768
 TOL_K3 = 1e-4       # relative to max |plain|: f32 sums in another order
+TOL_K5 = 1e-4       # relative to max |plain|: f32 sums in another order, online softmax
+TOL_K6 = 1e-4       # relative to max |plain|: f32 sums in another order
 TOL_K4_X = 1e-4     # K4 forward and d x_q/x_k/x_v, relative to max |plain|
 TOL_K4_PARAM = 1e-3  # K4 parameter/affine gradients: sums over up to 1M rows
 TOL_STEPS = 1e-3    # losses of three train steps, kernels against plain versions
@@ -90,6 +99,30 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def print_compiler_report(path):
+    """Registers, shared memory and spills of every kernel, from the
+    ``nvcc -Xptxas -v`` report kept beside the library."""
+    import re
+
+    entry, spills = "?", ""
+    with open(path) as f:
+        for line in f:
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                # the mangled name holds the kernel's name behind its length
+                # and its template arguments as Li<n>E
+                names = re.findall(r"\d([a-z][a-z_]*[a-z])", found.group(1))
+                entry = max(names, key=len) if names else found.group(1)[:48]
+                args = re.findall(r"Li(\d+)E", found.group(1))
+                entry += f"<{', '.join(args)}>" if args else ""
+            elif "spill stores" in line:
+                spills = line.strip()
+            elif "Used" in line and "registers" in line:
+                print(f"  {entry}: {line.strip().replace('ptxas info    : ', '')}; {spills}")
+            elif "error" in line:
+                print("  " + line.strip())
 
 
 def bound(n_bytes, n_flops):
@@ -204,7 +237,7 @@ def random_jax_checkpoint(path, model, recognizer_model):
 def check_knn(dev, rng):
     import torch
 
-    from pointcloudpdf_tpu_torch.ops import _cuda, geometry
+    from pointcloudpdf_tpu_torch.ops import _cuda, geometry, sampling
 
     B, N = 2, N_MAIN
     coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
@@ -212,10 +245,22 @@ def check_knn(dev, rng):
     mask = torch.from_numpy(mask).to(dev)
     sub = coord[:, : N // 4].contiguous()
     sub_mask = mask[:, : N // 4].contiguous()
+    # the Stratified Transformer's first layer: 16384 points, its local keys
+    # (k = 32) and its sparse keys (k = 16 of the N/8 FPS picks, masked)
+    n1 = N // 4
+    coord1, mask1 = clustered_cloud(rng, B, n1, [n1, n1 - n1 // 7])
+    coord1 = torch.from_numpy(coord1).to(dev)
+    mask1 = torch.from_numpy(mask1).to(dev)
+    ds_idx, ds_valid = sampling.blocked_farthest_point_sampling(
+        coord1, n1 // 8, mask1, max_group_steps=128)
+    ds_coord = coord1.gather(1, ds_idx.long()[..., None].expand(-1, -1, 3))
     cases = [("self k=16", coord, coord, 16, mask),
              ("self k=8", coord, coord, 8, mask),
              ("cross N/4->N k=16", sub, coord, 16, mask),
-             ("interp N->N/4 k=3", coord, sub, 3, sub_mask)]
+             ("interp N->N/4 k=3", coord, sub, 3, sub_mask),
+             (f"self k=32 N={n1}", coord1, coord1, 32, mask1),
+             (f"sparse k=16 {n1}->{n1 // 8} masked", coord1, ds_coord, 16, ds_valid),
+             (f"ball k=34 N={N}", coord, coord, 34, mask)]
     worst, rows = 0.0, []
     for name, q, r, k, m in cases:
         idx, d2 = geometry.knn(q, r, k, m)
@@ -236,18 +281,19 @@ def check_knn(dev, rng):
         ms = cuda_ms(lambda: geometry.knn(q, r, k, m), 5)
         with _cuda.plain_versions():
             plain_ms = cuda_ms(lambda: geometry.knn(q, r, k, m), 2)
-        rows.append((name, ms, plain_ms))
-        print(f"  K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    # bound of the first case: every query against every valid ref, 8 f32
-    # operations a pair (3 sub, 3 mul, 2 add); coords, mask, idx and dist2
-    # moved once
-    pairs = float(N * mask.sum())
-    n_bytes = 2 * B * N * 12 + B * N + 2 * B * N * 16 * 4
-    bound_ms, bound_by = bound(n_bytes, 8 * pairs)
-    print(f"  K1 self k=16 bound: {pairs:.3e} pairs x 8 flop, {n_bytes:.3e} bytes "
-          f"-> {bound_ms:.3f} ms ({bound_by})")
+        # bound: every query against every valid ref of its sample, 8 f32
+        # operations a pair (3 sub, 3 mul, 2 add); query and ref coords and
+        # the mask read once, idx and dist2 written once
+        pairs = float(q.shape[1] * m.sum())
+        n_bytes = (B * (q.shape[1] + r.shape[1]) * 12 + B * r.shape[1]
+                   + 2 * B * q.shape[1] * k * 4)
+        bound_ms, bound_by = bound(n_bytes, 8 * pairs)
+        rows.append((name, ms, plain_ms, bound_ms, bound_by))
+        print(f"  K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {pairs:.3e} pairs x 8 flop, "
+              f"{n_bytes:.3e} bytes)")
     return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": rows[0][3], "bound_by": rows[0][4],
             "shape": f"self k=16, B=2 x N={N}", "rows": rows}
 
 
@@ -271,7 +317,14 @@ def check_fps(dev, rng):
     with _cuda.plain_versions():
         plain_ms = cuda_ms(lambda: sampling.fps_sets(coord, mask, m), 1)
     rows.append((f"exact N={N} m={m}", ms, plain_ms))
-    print(f"  K2 exact N={N} m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    # bound of the exact case: each of the m rounds scans the N points once
+    # (8 flop a distance, a min and a compare); coords and mask read once,
+    # m indices written
+    exact_flops, exact_bytes = B * N * m * 10, B * N * 13 + B * m * 4
+    exact_bound, exact_by = bound(exact_bytes, exact_flops)
+    print(f"  K2 exact N={N} m={m}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{exact_bound:.4f} ms ({exact_by}: {exact_flops:.3e} flop, {exact_bytes:.3e} "
+          f"bytes; the {m} rounds are sequential)")
 
     # blocked, as TransitionDown calls it at the first downsampling of a
     # 65536-point bucket: m = N/4, 64 picks per morton window
@@ -483,27 +536,215 @@ def check_attention_train(dev, rng):
             "rows": rows}
 
 
+def st_attention_inputs(dev, rng, N, C, K=48, window=0.32, quant=0.02):
+    """Inputs of the cRPE window attention at one layer's shape, B = 2: a
+    clustered cloud with a masked tail, the K nearest points as keys with
+    ~20% of the slots masked and every 97th query left with none, random
+    q/k/v and tables."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import geometry
+
+    B = 2
+    coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
+    coord = torch.from_numpy(coord).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    key_idx, d2 = geometry.knn(coord, coord, K, mask)
+    key_mask = torch.isfinite(d2) & mask[..., None]
+    key_mask &= torch.from_numpy(rng.rand(B, N, K) >= 0.2).to(dev)
+    key_mask[:, ::97] = False
+    num_bins = 2 * int((2 * window + 1e-4) // quant)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    q, k, v = (t(B, N, C) for _ in range(3))
+    tables = [t(3, num_bins, C, scale=0.3) for _ in range(3)]
+    return (q, k, v, coord, key_idx, key_mask, *tables, C // 16, window, quant,
+            num_bins)
+
+
+def st_attention_kernel_bins(coord, key_idx, window, quant, num_bins, C):
+    """The bins (B, N, K, 3) int64 that K5 picks at width C, read back
+    through the kernel itself: with zero q, k and v, one key slot valid a
+    launch and a value table whose row r holds r in the channel of its axis
+    in every head, the output at (query, channel a) is the bin of axis a."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import st_attention as sa
+
+    B, N, K = key_idx.shape
+    dev = coord.device
+    zeros = torch.zeros((B, N, C), device=dev)
+    probe = torch.zeros((3, num_bins, C), device=dev)
+    for axis in range(3):
+        probe[axis, :, axis::16] = torch.arange(num_bins, device=dev)[:, None]
+    bins = torch.empty((B, N, K, 3), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        for slot in range(K):
+            only = torch.zeros((B, N, K), dtype=torch.bool, device=dev)
+            only[..., slot] = True
+            out = sa.st_attention(zeros, zeros, zeros, coord, key_idx, only, None,
+                                  None, probe, C // 16, window, quant, num_bins)
+            heads = out.reshape(B, N, C // 16, 16)[..., :3]
+            if not bool((heads == heads[:, :, :1]).all()):
+                raise AssertionError("K5: the heads of one query picked different bins")
+            bins[:, :, slot] = heads[:, :, 0].round().long()
+    return bins
+
+
+def check_st_attention(dev, rng):
+    """K5 against ``st_attention_plain`` at the three main-path shapes:
+    identical bins, output within TOL_K5 of max |plain|."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import _cuda
+    from pointcloudpdf_tpu_torch.ops import st_attention as sa
+
+    rows, worst = [], 0.0
+    for C, N, window, quant in ((96, 16384, 0.32, 0.02), (192, 4096, 0.64, 0.04),
+                                (384, 1024, 1.28, 0.08)):
+        args = st_attention_inputs(dev, rng, N, C, window=window, quant=quant)
+        coord, key_idx, key_mask, num_bins = args[3], args[4], args[5], args[-1]
+        B, K, H = 2, key_idx.shape[-1], C // 16
+        name = f"C={C} H={H} N={N} K={K} 2L={num_bins}"
+        expect(num_bins == 64, f"K5 {name}: 64 rows a table")
+        bins = st_attention_kernel_bins(coord, key_idx, window, quant, num_bins, C)
+        want = sa.st_attention_bins(coord, key_idx, window, quant, num_bins)
+        differing = int((bins != want).sum())
+        expect(differing == 0 and len(torch.unique(want)) > 16,
+               f"K5 {name}: bins identical at all {want.numel()} (query, key, "
+               f"axis), {len(torch.unique(want))} distinct")
+
+        def run():
+            return sa.st_attention(*args)
+
+        with torch.inference_mode():
+            out = run()
+            with _cuda.plain_versions():
+                ref = run()
+            torch.cuda.synchronize()
+            err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+            worst = max(worst, err / scale)
+            expect(err <= TOL_K5 * scale,
+                   f"K5 {name}: max abs err {err:.3e} <= {TOL_K5} x {scale:.3e}")
+            expect(bool((out[:, ::97] == 0).all()), f"K5 {name}: queries without a key give 0")
+            ms = cuda_ms(run, 10)
+            with _cuda.plain_versions():
+                plain_ms = cuda_ms(run, 3)
+        # bytes: q, k, v, coord, key_idx, key_mask and the three tables read
+        # once, out written once.  Operations a valid (query, key) pair: the
+        # three dots of a head's channels (6C), the sums of three table rows
+        # for the q, k and v terms (6C), v plus its table term and the
+        # weighted sum (3C), a softmax step a head (6H), three bins (15)
+        pairs = float(key_mask.sum())
+        n_bytes = (4 * B * N * C * 4 + B * N * 12 + B * N * K * 5
+                   + 9 * num_bins * C * 4)
+        n_flops = pairs * (15 * C + 6 * H + 15)
+        bound_ms, bound_by = bound(n_bytes, n_flops)
+        rows.append((name, ms, plain_ms, bound_ms, bound_by))
+        print(f"  K5 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} bytes, {n_flops:.3e} "
+              f"flop over {pairs:.3e} valid pairs)")
+    return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
+            "bound_ms": rows[0][3], "bound_by": rows[0][4],
+            "shape": "layer 1, B=2 x N=16384, C=96, H=6, K=48, 2L=64; "
+                     "max_abs_err is relative to max |plain|", "rows": rows}
+
+
+def check_kpconv(dev, rng):
+    """K6 against ``kpconv_plain`` at the two stem shapes, N = 65536, over
+    the 34 nearest points of a 0.10 m ball (K1 + the radius cut)."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.models.stratified_transformer.st import (
+        kpconv_kernel_points)
+    from pointcloudpdf_tpu_torch.ops import _cuda, geometry
+    from pointcloudpdf_tpu_torch.ops import kpconv as kp
+
+    B, N, S, radius, sigma_r = 2, N_MAIN, 34, 0.10, 0.04
+    coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
+    # shrunk, so that a ball holds what a room at 4 cm voxels gives it (some
+    # 20 points, many balls full) and not the ~6 of the room-scale cloud
+    coord = torch.from_numpy(coord * np.float32(0.6)).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    idx, nmask = geometry.ball_query(coord, coord, radius, S, ref_mask=mask)
+    nmask = nmask & mask[..., None]
+    counts = nmask.sum(-1)[mask]
+    print(f"  K6 neighbour table: {float(counts.float().mean()):.1f} of {S} slots "
+          f"valid a point, {float((counts == S).float().mean()):.3f} of the balls full")
+    points = torch.from_numpy(
+        kpconv_kernel_points() * np.float32(1.5 * sigma_r)).to(dev)
+    P = points.shape[0]
+    rows, worst = [], 0.0
+    for c_in, c_out in ((6, 48), (12, 12)):
+        feat = torch.from_numpy(
+            rng.standard_normal((B, N, c_in)).astype(np.float32)).to(dev)
+        weight = torch.from_numpy(
+            (rng.standard_normal((P, c_in, c_out)) * 0.2).astype(np.float32)).to(dev)
+
+        def run():
+            return kp.kpconv(coord, feat, idx, nmask, points, weight, sigma_r)
+
+        name = f"{c_in}->{c_out} N={N} S={S} P={P}"
+        with torch.inference_mode():
+            out = run()
+            with _cuda.plain_versions():
+                ref = run()
+            torch.cuda.synchronize()
+            err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+            worst = max(worst, err / scale)
+            expect(err <= TOL_K6 * scale,
+                   f"K6 {name}: max abs err {err:.3e} <= {TOL_K6} x {scale:.3e}")
+            expect(bool((out[~mask] == 0).all()), f"K6 {name}: padded rows give 0")
+            ms = cuda_ms(run, 10)
+            with _cuda.plain_versions():
+                plain_ms = cuda_ms(run, 3)
+        # bytes: coord, feat, idx, nmask, the kernel points and W read once,
+        # out written once.  Operations: a valid pair takes 12 P for its
+        # influences (3 sub, 3 mul, 2 add, sqrt, div, sub, max a kernel
+        # point) and 2 P C_in for the weighted features; a point with a
+        # neighbour 2 P C_in C_out for the product with W
+        pairs, pts = float(nmask.sum()), float(nmask.any(-1).sum())
+        n_bytes = (B * N * (12 + 4 * c_in + 5 * S + 4 * c_out)
+                   + P * 12 + P * c_in * c_out * 4)
+        n_flops = pairs * (12 * P + 2 * P * c_in) + pts * 2 * P * c_in * c_out
+        bound_ms, bound_by = bound(n_bytes, n_flops)
+        rows.append((name, ms, plain_ms, bound_ms, bound_by))
+        print(f"  K6 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} bytes, {n_flops:.3e} "
+              f"flop over {pairs:.3e} valid pairs)")
+    return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
+            "bound_ms": rows[0][3], "bound_by": rows[0][4],
+            "shape": f"stem 6->48, B=2 x N={N}, S=34, P=15; "
+                     "max_abs_err is relative to max |plain|", "rows": rows}
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the slices end to end
+# phases 4-7: the slices end to end
 
 
 def reset_launches():
-    from pointcloudpdf_tpu_torch.ops import geometry, sampling
+    from pointcloudpdf_tpu_torch.ops import geometry, kpconv, sampling, st_attention
     from pointcloudpdf_tpu_torch.ops import vector_attention as va
 
     geometry.KNN_LAUNCHES = sampling.FPS_LAUNCHES = 0
     va.ATTENTION_LAUNCHES = va.ATTENTION_TRAIN_LAUNCHES = 0
     va.ATTENTION_BWD_LAUNCHES = 0
+    st_attention.ST_ATTENTION_LAUNCHES = kpconv.KPCONV_LAUNCHES = 0
 
 
 def read_launches():
-    from pointcloudpdf_tpu_torch.ops import geometry, sampling
+    from pointcloudpdf_tpu_torch.ops import geometry, kpconv, sampling, st_attention
     from pointcloudpdf_tpu_torch.ops import vector_attention as va
 
     return {"knn": geometry.KNN_LAUNCHES, "fps": sampling.FPS_LAUNCHES,
             "vector_attention": va.ATTENTION_LAUNCHES,
             "vector_attention_train": (va.ATTENTION_TRAIN_LAUNCHES,
-                                       va.ATTENTION_BWD_LAUNCHES)}
+                                       va.ATTENTION_BWD_LAUNCHES),
+            "st_attention": st_attention.ST_ATTENTION_LAUNCHES,
+            "kpconv": kpconv.KPCONV_LAUNCHES}
 
 
 def run_tool(tool, argv):
@@ -526,7 +767,11 @@ def run_tool(tool, argv):
     return "\n".join(lines)
 
 
-def run_slice(work):
+def run_slice(work, config, name, per_forward=None):
+    """A serving slice end to end on ``config``: the tester over the
+    synthetic room with the launch counts read, then one fragment again on
+    the plain versions.  ``per_forward`` gives the launches of one forward
+    where the modules fix them (the Stratified Transformer's)."""
     import torch
 
     from pointcloudpdf_tpu_torch.models import build_model
@@ -534,19 +779,19 @@ def run_slice(work):
     from pointcloudpdf_tpu_torch.recognizers import build_recognizer
     from pointcloudpdf_tpu_torch.utils.config import Config
 
-    data_root = os.path.join(work, "s3dis")
+    data_root = os.path.join(work, f"s3dis_{name}")
     os.makedirs(os.path.join(data_root, "Area_5"))
     n_raw = synthetic_room(np.random.RandomState(SEED),
                            os.path.join(data_root, "Area_5", "office_1.npz"))
     print(f"  synthetic room: {n_raw} raw points")
 
-    cfg = Config.fromfile(CONFIG)
+    cfg = Config.fromfile(config)
     torch.manual_seed(SEED)
-    weight = os.path.join(work, "model.pth")
+    weight = os.path.join(work, f"model_{name}.pth")
     random_jax_checkpoint(weight, build_model(dict(cfg.model)),
                           build_recognizer(cfg.recognizer).model)
-    save_path = os.path.join(work, "exp")
-    argv = ["tools/test_torch.py", "--config-file", CONFIG, "--device", DEVICE,
+    save_path = os.path.join(work, f"exp_{name}")
+    argv = ["tools/test_torch.py", "--config-file", config, "--device", DEVICE,
             "--options", f"data_root={data_root}", f"weight={weight}",
             f"save_path={save_path}",
             f"data.test.data_root={data_root}"]
@@ -557,7 +802,8 @@ def run_slice(work):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    print(f"  tools/test_torch.py: {wall:.3f} s; launches {launches}")
+    forwards = log.count(", Batch: ")
+    print(f"  tools/test_torch.py: {wall:.3f} s, {forwards} forwards; launches {launches}")
     expect(launches.pop("vector_attention_train") == (0, 0),
            "serving launched no training kernel")
 
@@ -569,14 +815,24 @@ def run_slice(work):
            f"pred/score cover all {n_raw} points")
     expect(bool(np.isfinite(score).all()) and pred.min() >= 0 and pred.max() < 13,
            "pred in [0, 13) and score finite")
-    for name, n in launches.items():
-        expect(n > 0, f"{name} kernel launched {n} times on the main path")
+    if per_forward is None:
+        expect(launches.pop("st_attention") == 0 and launches.pop("kpconv") == 0,
+               "the PT-v1 path launched no Stratified Transformer kernel")
+        for key, n in launches.items():
+            expect(n > 0, f"{key} kernel launched {n} times on the main path")
+    else:
+        expect(forwards > 0 and launches.pop("vector_attention") == 0,
+               "the Stratified Transformer path launched no PT-v1 attention kernel")
+        for key, n in per_forward.items():
+            expect(launches[key] == n * forwards,
+                   f"{key} kernel launched {launches[key]} times = {n} a forward "
+                   f"x {forwards} forwards")
 
     # one fragment again, kernels against plain versions
     from pointcloudpdf_tpu_torch.engines.test import TESTERS
 
     cfg.merge_from_dict({"data_root": data_root, "weight": weight,
-                         "save_path": os.path.join(work, "exp_check"),
+                         "save_path": os.path.join(work, f"exp_check_{name}"),
                          "data.test.data_root": data_root, "device": DEVICE})
     tester = TESTERS.build(dict(type="OpenSegTester", cfg=cfg))
     scene = tester.test_dataset[0]
@@ -615,6 +871,16 @@ def run_slice(work):
           f"tester wall {wall / (len(sizes) or 1):.3f} s per fragment "
           f"({len(sizes)} fragments)")
     return launches
+
+
+# launches of one Stratified Transformer forward (ST-v1m1 + ST recognizer, four
+# layers): K5 once a block (2 + 6 + 2), K6 once a stem block; K1 for the
+# stem's ball query (one table for both blocks), three TransitionDowns, two
+# key-set kNNs a layer and one interpolation in each of the backbone's and
+# the recognizer's three upsamples; K2 for three TransitionDowns and three
+# sparse-key subsets
+ST_PER_FORWARD = {"st_attention": 10, "kpconv": 2, "knn": 1 + 3 + 6 + 3 + 3,
+                  "fps": 3 + 3}
 
 
 def run_training_slice(work):
@@ -869,24 +1135,25 @@ def main() -> int:
     so = _cuda.build()
     _cuda.library()
     print(f"  built {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.1f} s")
-    with open(so[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "error" in line:
-                print("  " + line.strip())
+    print_compiler_report(so[:-3] + ".log")
 
     print("[3] kernels against their plain versions")
     rng = np.random.RandomState(SEED)
     results = {"knn": check_knn(dev, rng), "fps": check_fps(dev, rng),
                "vector_attention": check_attention(dev, rng),
-               "vector_attention_train": check_attention_train(dev, rng)}
+               "vector_attention_train": check_attention_train(dev, rng),
+               "st_attention": check_st_attention(dev, rng),
+               "kpconv": check_kpconv(dev, rng)}
 
     with tempfile.TemporaryDirectory() as work:
         print("[4] serving slice end to end")
-        serving = run_slice(work)
+        serving = run_slice(work, CONFIG, "pt")
         print("[5] training slice end to end")
         launches, data_root, batch_size, peak = run_training_slice(work)
         print("[6] three train steps, kernels against plain versions")
         compare_train_steps(work, data_root)
+        print("[7] Stratified Transformer serving slice end to end")
+        st_serving = run_slice(work, ST_CONFIG, "st", ST_PER_FORWARD)
 
     meta = {
         "knn": ("K1 exact kNN", "pointcloudpdf_tpu_torch/csrc/knn.cu",
@@ -900,18 +1167,35 @@ def main() -> int:
             "K4 vector attention (training forward + backward)",
             "pointcloudpdf_tpu_torch/csrc/vector_attention_bwd.cu",
             "pointcloudpdf_tpu/ops/pallas_attention.py:527"),
+        "st_attention": ("K5 cRPE window attention (inference)",
+                         "pointcloudpdf_tpu_torch/csrc/st_attention.cu",
+                         "pointcloudpdf_tpu/ops/pallas_st_attention.py:155"),
+        "kpconv": ("K6 KPConv (inference)",
+                   "pointcloudpdf_tpu_torch/csrc/kpconv.cu",
+                   "pointcloudpdf_tpu/ops/pallas_kpconv.py:156"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():
         r = results[key]
-        # launches: on the training slice's run (K4: forward + backward);
+        # launches: over the three main-path runs, each read from its own
+        # run with the counts set to 0 just before it: launches_train (the
+        # PT-v1 training slice; K4 forward + backward), launches_pt_serving
+        # and launches_st_serving (launches_serving: both serving slices);
         # library_ms: no single PyTorch call computes any of these functions
-        # (cdist + topk, a loop of argmax, a chain of gathers and matmuls)
-        n = launches[key]
+        # (cdist + topk, a loop of argmax, a chain of gathers and matmuls;
+        # scaled_dot_product_attention has no per-pair table terms and no
+        # gathered keys, a convolution no kernel-point influences)
+        n_train = launches[key]
+        if isinstance(n_train, tuple):
+            n_train = sum(n_train)
+        n_pt, n_st = serving.get(key, 0), st_serving.get(key, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": sum(n) if isinstance(n, tuple) else n,
-                        "launches_serving": serving.get(key, 0),
+                        "launches": n_train + n_pt + n_st,
+                        "launches_train": n_train,
+                        "launches_pt_serving": n_pt,
+                        "launches_st_serving": n_st,
+                        "launches_serving": n_pt + n_st,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,

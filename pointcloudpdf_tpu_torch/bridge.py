@@ -4,7 +4,8 @@ torch ``state_dict``s.
 A JAX tree is ``{"params": {...}, "batch_stats": {...}}`` of numpy arrays
 (what the JAX package's checkpoints pickle).  The torch names follow the
 reference (Pointcept) layout, so this map is the reference importer's
-``_pt_v1_rules`` (tools/import_reference_checkpoint.py) read backwards.
+``_pt_v1_rules`` and ``_st_v1m1_rules`` (tools/import_reference_checkpoint.py)
+read backwards.
 
 Leaf transforms:
 
@@ -18,6 +19,11 @@ BN ``bias``                 ``params/<p>/bias``
 BN ``running_mean``         ``batch_stats/<p>/mean``
 BN ``running_var``          ``batch_stats/<p>/var``
 BN ``num_batches_tracked``  (none: 0 on the way in, dropped out)
+LayerNorm ``weight``        ``params/<p>/scale``
+LayerNorm ``bias``          ``params/<p>/bias``
+``relative_pos_*_table``    ``params/<p>/rel_*_table`` (2L, H, hd, 3), as is
+KPConv ``weight``           ``params/<p>/kp_weight`` (P, C_in, C_mid), as is
+KPConv ``K_points`` buffer  ``batch_stats/<p>/kp_points`` (P, 3)
 ==========================  ======================================
 
 Module map (``{s}`` a stage digit, ``{st}`` enc or dec, torch block
@@ -47,6 +53,28 @@ Recognizer (``PTRecognizer``; JAX root is the recognizer tree)
   dec{s}.linear1.0 / linear1.1      dec{s}/linear1 / bn1
   dec{s}.linear2.0 / linear2.1      dec{s}/linear2 / bn2
   conf.0 / conf.1 / conf.3          conf1 / conf_bn / conf2
+
+Stratified Transformer (``{l}`` a torch layer, JAX ``layer{l+1}``; ``{d}`` a
+block; ``num_layers`` is read off the keys)
+  backbone.stem_layer.{k}.kpconv              stem{k} (kp_weight, kp_points)
+  backbone.stem_layer.0.bn                    stem0/bn                   BN
+  backbone.stem_layer.1.unary_1.0 / .1        stem1/unary1 / unary1_bn
+  backbone.stem_layer.1.unary_2.0 / .1        stem1/unary2 / unary2_bn
+  backbone.stem_layer.1.shortcut_op.0 / .1    stem1/shortcut / shortcut_bn
+  backbone.downsample.norm / linear           stem_down/norm / linear
+  backbone.layers.{l}.blocks.{d}.norm1|norm2  layer{l+1}_block{d}/norm1|norm2   LayerNorm
+  backbone.layers.{l}.blocks.{d}.attn.qkv|proj          .../attn/qkv|proj
+  backbone.layers.{l}.blocks.{d}.attn.relative_pos_*_table   .../attn/rel_*_table
+  backbone.layers.{l}.blocks.{d}.mlp.fc1|fc2            .../mlp_fc1|mlp_fc2
+  backbone.layers.{l}.downsample.norm|linear            down{l+1}/norm|linear
+  backbone.upsamples.{u}.linear1.0 / .1       up{w}/norm1 / linear1
+  backbone.upsamples.{u}.linear2.0 / .1       up{w}/norm2 / linear2
+      (w = num_layers-1-u, and 0 for the last, which lands on the stem)
+  backbone.classifier.0 / .1 / .3             cls_fc1 / cls_bn / cls_fc2
+
+ST recognizer (``STRecognizer``)
+  upsamples.{d}.linear1.0 / .1, linear2.0 / .1   up{d}/norm1 / linear1, norm2 / linear2
+  classifier.0 / .1 / .3                      conf_fc1 / conf_bn / conf_fc2
 """
 
 from __future__ import annotations
@@ -76,6 +104,39 @@ _BLOCK_TAILS = (
     ("bn3", "bn3", "bn"),
 )
 
+_ST_BLOCK = ("backbone.layers.{j}.blocks.{d}.", _B + "layer{i}_block{d}/")
+_ST_RULES = [
+    ("backbone.stem_layer.{k}.kpconv", _B + "stem{k}", "kpconv"),
+    ("backbone.stem_layer.0.bn", _B + "stem0/bn", "bn"),
+    ("backbone.stem_layer.1.unary_1.0", _B + "stem1/unary1", "linear"),
+    ("backbone.stem_layer.1.unary_1.1", _B + "stem1/unary1_bn", "bn"),
+    ("backbone.stem_layer.1.unary_2.0", _B + "stem1/unary2", "linear"),
+    ("backbone.stem_layer.1.unary_2.1", _B + "stem1/unary2_bn", "bn"),
+    ("backbone.stem_layer.1.shortcut_op.0", _B + "stem1/shortcut", "linear"),
+    ("backbone.stem_layer.1.shortcut_op.1", _B + "stem1/shortcut_bn", "bn"),
+    ("backbone.downsample.norm", _B + "stem_down/norm", "ln"),
+    ("backbone.downsample.linear", _B + "stem_down/linear", "linear"),
+    *[(_ST_BLOCK[0] + tt, _ST_BLOCK[1] + jt, k) for tt, jt, k in (
+        ("norm1", "norm1", "ln"), ("norm2", "norm2", "ln"),
+        ("attn.qkv", "attn/qkv", "linear"), ("attn.proj", "attn/proj", "linear"),
+        ("attn", "attn", "tables"),
+        ("mlp.fc1", "mlp_fc1", "linear"), ("mlp.fc2", "mlp_fc2", "linear"))],
+    ("backbone.layers.{j}.downsample.norm", _B + "down{i}/norm", "ln"),
+    ("backbone.layers.{j}.downsample.linear", _B + "down{i}/linear", "linear"),
+    *[(f"{tp}.linear{n}.0", f"{jp}/norm{n}", "ln") for n in (1, 2)
+      for tp, jp in (("backbone.upsamples.{u}", _B + "up{w}"),
+                     ("upsamples.{d}", "up{d}"))],
+    *[(f"{tp}.linear{n}.1", f"{jp}/linear{n}", "linear") for n in (1, 2)
+      for tp, jp in (("backbone.upsamples.{u}", _B + "up{w}"),
+                     ("upsamples.{d}", "up{d}"))],
+    ("backbone.classifier.0", _B + "cls_fc1", "linear"),
+    ("backbone.classifier.1", _B + "cls_bn", "bn"),
+    ("backbone.classifier.3", _B + "cls_fc2", "linear"),
+    ("classifier.0", "conf_fc1", "linear"),
+    ("classifier.1", "conf_bn", "bn"),
+    ("classifier.3", "conf_fc2", "linear"),
+]
+
 # (torch module path, JAX module path, kind)
 RULES: List[Tuple[str, str, str]] = [
     ("backbone.enc{s}.0.linear", _B + "enc{s}/down/linear", "linear"),
@@ -96,10 +157,12 @@ RULES: List[Tuple[str, str, str]] = [
     ("conf.0", "conf1", "linear"),
     ("conf.1", "conf_bn", "bn"),
     ("conf.3", "conf2", "linear"),
+    *_ST_RULES,
 ]
 
 _GROUPS = {"st": r"(?P<st>enc|dec)", "s": r"(?P<s>\d)", "i": r"(?P<i>\d+)",
-           "j": r"(?P<j>\d+)"}
+           "j": r"(?P<j>\d+)", "d": r"(?P<d>\d+)", "k": r"(?P<k>\d)",
+           "u": r"(?P<u>\d+)", "w": r"(?P<w>\d+)"}
 
 # torch leaf -> (JAX collection, JAX leaf) per kind
 _LEAVES = {
@@ -107,6 +170,11 @@ _LEAVES = {
     "bn": {"weight": ("params", "scale"), "bias": ("params", "bias"),
            "running_mean": ("batch_stats", "mean"),
            "running_var": ("batch_stats", "var")},
+    "ln": {"weight": ("params", "scale"), "bias": ("params", "bias")},
+    "tables": {f"relative_pos_{n}_table": ("params", f"rel_{n}_table")
+               for n in ("query", "key", "value")},
+    "kpconv": {"weight": ("params", "kp_weight"),
+               "K_points": ("batch_stats", "kp_points")},
 }
 
 
@@ -119,23 +187,46 @@ def _regex(template: str, sep: str) -> re.Pattern:
 
 _TORCH_RX = [(_regex(t, "."), j, k) for t, j, k in RULES]
 _JAX_RX = [(_regex(j, "/"), t, k) for t, j, k in RULES]
+# ``cls_bn`` and ``conf_bn`` name a module in the PT-v1 trees and in the ST
+# trees: a tree that holds an ST-only module reads the ST rules first
+_JAX_RX_ST = ([(_regex(j, "/"), t, k) for t, j, k in _ST_RULES]
+              + _JAX_RX[:-len(_ST_RULES)])
+_ST_ONLY = re.compile(r"(^|/)(stem_down|conf_fc1)/")
 
 
-def _fill(template: str, groups: Dict[str, str]) -> str:
+def _fill(template: str, groups: Dict[str, str], num_layers: int) -> str:
     g = dict(groups)
     if g.get("i") is not None:
         g["j"] = str(int(g["i"]) - 1)
     elif g.get("j") is not None:
         g["i"] = str(int(g["j"]) + 1)
+    # ST decoder: upsamples.{u} lifts layer num_layers-1-u; the JAX module
+    # is named after that layer, and "up0" where it lands on the stem
+    if g.get("u") is not None:
+        w = num_layers - 1 - int(g["u"])
+        g["w"] = "0" if w == 1 else str(w)
+    elif g.get("w") is not None:
+        w = int(g["w"])
+        g["u"] = str(num_layers - 2 if w == 0 else num_layers - 1 - w)
     return re.sub(r"\{(\w+)\}", lambda m: g[m.group(1)], template)
+
+
+def _st_num_layers(keys, pattern: str, offset: int) -> int:
+    """``num_layers`` of a Stratified Transformer from its keys (0 for any
+    other tree): the highest encoder layer index plus ``offset``."""
+    found = [int(m.group(1)) for m in (re.search(pattern, k) for k in keys) if m]
+    return max(found) + offset if found else 0
 
 
 def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{params, batch_stats}`` tree -> torch state_dict."""
     sd: Dict[str, torch.Tensor] = {}
+    num_layers = _st_num_layers(flatten_tree(tree.get("params", {})),
+                                r"backbone_module/layer(\d+)_block", 1)
+    is_st = any(_ST_ONLY.search(k) for k in flatten_tree(tree.get("params", {})))
     for coll in ("params", "batch_stats"):
         for path, value in flatten_tree(tree.get(coll, {})).items():
-            for rx, torch_tmpl, kind in _JAX_RX:
+            for rx, torch_tmpl, kind in (_JAX_RX_ST if is_st else _JAX_RX):
                 m = rx.fullmatch(path)
                 if m is None:
                     continue
@@ -143,7 +234,7 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
                              if c == coll and jl == m.group("leaf")), None)
                 if leaf is None:
                     continue
-                mod = _fill(torch_tmpl, m.groupdict())
+                mod = _fill(torch_tmpl, m.groupdict(), num_layers)
                 arr = np.asarray(value)
                 if kind == "linear" and leaf == "weight":
                     arr = arr.T
@@ -159,6 +250,7 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
 def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """torch state_dict -> JAX ``{params, batch_stats}`` tree of numpy."""
     flat: Dict[str, np.ndarray] = {}
+    num_layers = _st_num_layers(state_dict, r"backbone\.layers\.(\d+)\.", 2)
     for key, value in state_dict.items():
         if key.endswith(".num_batches_tracked"):
             continue
@@ -170,8 +262,8 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
             arr = value.detach().cpu().numpy()
             if kind == "linear" and jleaf == "kernel":
                 arr = arr.T
-            flat[f"{coll}/{_fill(jax_tmpl, m.groupdict())}/{jleaf}"] = (
-                np.ascontiguousarray(arr))
+            path = _fill(jax_tmpl, m.groupdict(), num_layers)
+            flat[f"{coll}/{path}/{jleaf}"] = np.ascontiguousarray(arr)
             break
         else:
             raise KeyError(f"bridge: no JAX name for torch key {key}")

@@ -318,10 +318,11 @@ class OpenSegTrainer(Trainer):
     machinery is the backbone's ``intermediates`` return; backbone and
     recognizer share one optimizer (the reference's joint
     build_open_optimizer, train.py:393-399); while the recognizer's loss
-    weight is zero its parameters take no gradient, so the optimizer skips
-    them and weight decay cannot move them (the reference's requires_grad
-    toggle).  The PDF pseudo-labelling runs on the host between a device
-    score pass and the train step.
+    weight is zero its parameters are frozen as the JAX step freezes them:
+    they take a zero gradient, the optimizer steps (its state moves: the
+    momentum trace gathers weight decay, Adam's step count advances) and
+    the parameters are put back bit for bit.  The PDF pseudo-labelling runs
+    on the host between a device score pass and the train step.
     """
 
     def __init__(self, cfg):
@@ -386,10 +387,11 @@ class OpenSegTrainer(Trainer):
     def train_step(self, batch: Dict, rec_w: float = 0.0) -> Dict:
         rec = self.recognizer
         self._train_mode(True)
+        frozen = self._rec_module is not None and not rec_w > 0
         if self._rec_module is not None:
-            # frozen while its loss weight is zero: no gradient, so neither
-            # momentum nor weight decay moves it
-            self._rec_module.requires_grad_(rec_w > 0)
+            # no backward pass through a frozen recognizer: its gradient is
+            # exactly zero (the loss holds it times a weight of 0)
+            self._rec_module.requires_grad_(not frozen)
         self.optimizer.zero_grad(set_to_none=True)
         with self._amp():
             out = self.model(batch)
@@ -405,7 +407,19 @@ class OpenSegTrainer(Trainer):
                 parts["loss_rec"] = rec_l
             parts["loss"] = loss
         loss.backward()
+        if frozen:
+            # the optimizer state of a frozen recognizer moves as in the JAX
+            # step (which zeroes its updates, not its gradients): step on a
+            # zero gradient, then put the parameters back
+            rec_params = list(self._rec_module.parameters())
+            kept = [p.detach().clone() for p in rec_params]
+            for p in rec_params:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
+        if frozen:
+            with torch.no_grad():
+                for p, old in zip(rec_params, kept):
+                    p.copy_(old)
         return {k: v.detach() for k, v in parts.items()}
 
     def eval_step(self, batch: Dict) -> Dict:

@@ -2,3 +2,4 @@ from .builder import MODELS, build_model
 from .default import DefaultSegmentor
 from .norm import MaskedBatchNorm
 from . import point_transformer  # registers PointTransformer-Seg26/38/50
+from . import stratified_transformer  # registers ST-v1m1 / ST-v1m2

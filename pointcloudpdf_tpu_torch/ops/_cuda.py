@@ -42,6 +42,7 @@ _plain = False
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # query, ref, ref_mask, B, M, N, k, idx, dist2, stream
     "pcpdf_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
@@ -53,6 +54,12 @@ _SIGNATURES = {
     # xq, xk, xv, coord, idx, nmask, params, dout, B, N, C, K,
     # dxq, dxk, dxv, dparams, stream
     "pcpdf_vector_attention_bwd": [_P] * 8 + [_I] * 4 + [_P] * 5,
+    # q, k, v, coord, key_idx, key_mask, tq, tk, tv (each table or NULL),
+    # scale, 2 * window, 1e-4, quant, B, N, C, K, num_bins, out, stream
+    "pcpdf_st_attention": [_P] * 9 + [_F] * 4 + [_I] * 5 + [_P, _P],
+    # coord, feat, idx, nmask, kp, weight, sigma_r, B, N, S, P, C_in, C_out,
+    # out, stream
+    "pcpdf_kpconv": [_P] * 6 + [_F] + [_I] * 6 + [_P, _P],
 }
 
 

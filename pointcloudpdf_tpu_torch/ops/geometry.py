@@ -1,8 +1,8 @@
 """Neighbourhood geometry over padded point batches: kNN (kernel K1),
-grouping and inverse-distance interpolation.
+ball query, grouping and inverse-distance interpolation.
 
 Counterpart of ``pointcloudpdf_tpu/ops/geometry.py`` (``knn`` with its
-exact contract, ``grouping``, ``interpolation``), batched over a leading
+exact contract, ``ball_query``, ``grouping``, ``interpolation``), batched over a leading
 sample axis instead of vmapped.  The TPU dispatch tiers of the JAX ``knn``
 (serialization windows, approximate top-k, split Pallas) are not ported:
 on the card one exact kernel serves every size.
@@ -106,6 +106,37 @@ def knn_plain(query, ref, k, ref_mask):
     first = torch.where(finite[..., :1], idx[..., :1], torch.zeros_like(idx[..., :1]))
     idx = torch.where(finite, idx, first)
     return idx, dist2
+
+
+def ball_query(
+    query: torch.Tensor,
+    ref: torch.Tensor,
+    radius: float,
+    k: int,
+    ref_mask: Optional[torch.Tensor] = None,
+    min_radius: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Up to k neighbours within [min_radius, radius] of every query, as a
+    masked kNN: the k nearest valid refs are found (K1), then those outside
+    the annulus are invalidated.
+
+    Returns (idx (B, M, k) int32, neighbour_mask (B, M, k) bool); invalid
+    slots repeat the query's first index, so every index is a safe gather
+    row.
+    """
+    idx, dist2 = knn(query, ref, k, ref_mask)
+    inside = (dist2 <= radius * radius) & (dist2 >= min_radius * min_radius)
+    inside &= torch.isfinite(dist2)
+    return torch.where(inside, idx, idx[..., :1]), inside
+
+
+def divide_exact(x: torch.Tensor, divisor: float) -> torch.Tensor:
+    """``x / divisor`` as an IEEE division on every device.  For a Python
+    scalar divisor PyTorch's CUDA kernel multiplies by the reciprocal, which
+    is off by an ulp where the CPU (and the JAX package) divide: enough to
+    flip a ``floor`` at a bin or window boundary.  A tensor divisor on
+    ``x``'s device takes the true division."""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
 
 
 def gather_rows(feat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

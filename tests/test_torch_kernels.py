@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 kNN, K2 FPS, K3 vector attention, K4 its
-training forward + backward) against their plain PyTorch versions on a GPU.
+training forward + backward, K5 cRPE window attention, K6 KPConv) against
+their plain PyTorch versions on a GPU.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips where no CUDA device is present.  The file imports
@@ -9,14 +10,23 @@ suite's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (the read-back of K5's bins)
 from pointcloudpdf_tpu_torch.models.norm import MaskedBatchNorm
 from pointcloudpdf_tpu_torch.models.point_transformer import PointTransformerLayer
 from pointcloudpdf_tpu_torch.models.utils.structure import Points
+from pointcloudpdf_tpu_torch.models.stratified_transformer import st
 from pointcloudpdf_tpu_torch.ops import _cuda, geometry, sampling
+from pointcloudpdf_tpu_torch.ops import kpconv as kp
+from pointcloudpdf_tpu_torch.ops import st_attention as sa
 from pointcloudpdf_tpu_torch.ops import vector_attention as va
 
 pytestmark = pytest.mark.cuda
@@ -249,3 +259,174 @@ def test_attention_train_layer_matches_plain(dev):
         assert float((grads[name] - g).abs().max()) <= 1e-3 * float(g.abs().max()) + floor, name
     for name, b in rbufs.items():
         torch.testing.assert_close(bufs[name], b, rtol=1e-5, atol=1e-6)
+
+
+# -- K5: cRPE window attention ----------------------------------------------
+
+
+def _st_case(dev, c, rel, seed, n=3000, valid=(3000, 1900), k=12,
+             window=0.16, quant=0.01):
+    """q/k/v, coords, a key table (the k nearest, ~20% of the slots masked,
+    every 7th query with no key) and the three tables at one width."""
+    gen = torch.Generator().manual_seed(seed)
+    coord, mask = _cloud(seed, len(valid), n, list(valid), dev)
+    key_idx, d2 = geometry.knn(coord, coord, k, mask)
+    key_mask = (torch.isfinite(d2) & mask[..., None]
+                & (torch.rand(key_idx.shape, generator=gen) >= 0.2).to(dev))
+    key_mask[:, ::7] = False
+    num_bins = 2 * int((2 * window + 1e-4) // quant)
+    q, kk, v = (torch.randn((len(valid), n, c), generator=gen).to(dev)
+                for _ in range(3))
+    tables = [(0.3 * torch.randn((3, num_bins, c), generator=gen)).to(dev)
+              if on else None for on in rel]
+    return (q, kk, v, coord, key_idx, key_mask, *tables, c // 16, window,
+            quant, num_bins)
+
+
+@pytest.mark.parametrize("rel", [(True, True, True), (False, False, False),
+                                 (True, False, False), (False, True, False),
+                                 (False, False, True)])
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_st_attention_kernel_matches_plain(dev, c, rel):
+    """K5 within 1e-4 of max |plain| (f32 sums in another order, an online
+    softmax); queries without a key come out 0."""
+    case = _st_case(dev, c, rel, seed=c + sum(rel))
+    before = sa.ST_ATTENTION_LAUNCHES
+    out = sa.st_attention(*case)
+    assert sa.ST_ATTENTION_LAUNCHES == before + 1
+    with _cuda.plain_versions():
+        ref = sa.st_attention(*case)
+    assert sa.ST_ATTENTION_LAUNCHES == before + 1
+    assert float(ref.abs().max()) > 0.1
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert (out[:, ::7] == 0).all()
+
+
+@pytest.mark.parametrize("c", [96, 192, 384])
+def test_st_attention_kernel_picks_the_plain_bins(dev, c):
+    """The kernel's bins at each width of the ST path, read back through a
+    value table that holds its own row number (one key slot a launch, zero
+    q, k and v): equal to the plain version's at every (query, key, axis),
+    on coordinates of which half sit on a 1 cm grid, where bin boundaries
+    are common."""
+    q, k, v, coord, key_idx, key_mask, _, _, _, h, window, quant, num_bins = (
+        _st_case(dev, c, (False, False, False), seed=3))
+    coord[0] = torch.round(coord[0] * 100) / 100
+    got = chip_smoke.st_attention_kernel_bins(coord, key_idx, window, quant,
+                                              num_bins, c)
+    want = sa.st_attention_bins(coord, key_idx, window, quant, num_bins)
+    assert len(torch.unique(want)) > 20
+    assert int((got != want).sum()) == 0
+
+
+def test_st_attention_kernel_all_masked_batch(dev):
+    case = list(_st_case(dev, 96, (True, True, True), seed=4))
+    case[5] = torch.zeros_like(case[5])
+    assert (sa.st_attention(*case) == 0).all()
+
+
+def test_st_attention_kernel_refuses_grad(dev):
+    case = list(_st_case(dev, 96, (True, True, True), seed=5, n=200,
+                         valid=(200, 150)))
+    case[0] = case[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        sa.st_attention(*case)
+    with torch.no_grad():
+        assert sa.st_attention(*case).shape == (2, 200, 96)
+
+
+def test_st_block_takes_kernel_in_eval_and_plain_in_training(dev):
+    """The dispatch of the inference-only kernel: eval under no_grad
+    launches K5, eval with a gradient asked of it raises (no quiet plain
+    version on the card), a training block takes the plain version and
+    gives a gradient."""
+    torch.manual_seed(6)
+    block = st.STBlock(96, 6, 0.16, 0.01, True, True, True, 0.0).to(dev)
+    q, _, _, coord, key_idx, key_mask, *_ = _st_case(
+        dev, 96, (False,) * 3, seed=6, n=500, valid=(500, 300))
+    mask = torch.arange(500, device=dev)[None] < torch.tensor([[500], [300]], device=dev)
+    before = sa.ST_ATTENTION_LAUNCHES
+    block.eval()
+    with torch.inference_mode():
+        out = block(q, coord, key_idx, key_mask, mask)
+        with _cuda.plain_versions():
+            ref = block(q, coord, key_idx, key_mask, mask)
+    assert sa.ST_ATTENTION_LAUNCHES == before + 1
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    with pytest.raises(RuntimeError, match="no backward"):
+        block(q, coord, key_idx, key_mask, mask)
+    block.train()
+    block(q, coord, key_idx, key_mask, mask).sum().backward()
+    assert sa.ST_ATTENTION_LAUNCHES == before + 1
+    assert block.attn.relative_pos_key_table.grad.abs().max() > 0
+
+
+# -- K6: KPConv ---------------------------------------------------------------
+
+
+def _kpconv_case(dev, c_in, c_out, seed, n=4000, valid=(4000, 2500), radius=0.1):
+    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    # 40 clusters of sigma 6 cm: balls of radius 10 cm that hold from a few
+    # to well over 34 points
+    centers = rng.rand(40, 3) * np.array([2.0, 1.5, 1.0])
+    coord = (centers[rng.randint(0, 40, (len(valid), n))]
+             + rng.normal(scale=0.06, size=(len(valid), n, 3))).astype(np.float32)
+    mask = np.arange(n)[None, :] < np.asarray(valid)[:, None]
+    coord[~mask] = 0.0
+    coord, mask = torch.from_numpy(coord).to(dev), torch.from_numpy(mask).to(dev)
+    idx, nmask = geometry.ball_query(coord, coord, radius, 34, ref_mask=mask)
+    nmask = nmask & mask[..., None]
+    feat = torch.randn((len(valid), n, c_in), generator=gen).to(dev)
+    feat = feat * mask[..., None]
+    points = torch.from_numpy(st.kpconv_kernel_points() * np.float32(0.06)).to(dev)
+    weight = (0.2 * torch.randn((15, c_in, c_out), generator=gen)).to(dev)
+    return coord, feat, idx, nmask, points, weight, 0.04
+
+
+@pytest.mark.parametrize("c_in,c_out", [(6, 48), (12, 12)])
+def test_kpconv_kernel_matches_plain(dev, c_in, c_out):
+    """Both stem shapes, one sample with no valid point at all, balls with
+    fewer than 34 points and full ones: K6 within 1e-4 of max |plain|."""
+    case = _kpconv_case(dev, c_in, c_out, seed=c_in, valid=(4000, 2500, 0))
+    counts = case[3].sum(-1)
+    assert int(counts.max()) == 34 and int(counts[case[3][..., 0]].min()) < 34
+    before = kp.KPCONV_LAUNCHES
+    out = kp.kpconv(*case)
+    assert kp.KPCONV_LAUNCHES == before + 1
+    with _cuda.plain_versions():
+        ref = kp.kpconv(*case)
+    assert kp.KPCONV_LAUNCHES == before + 1
+    assert out.shape == (3, 4000, c_out) and float(ref.abs().max()) > 0.1
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert (out[2] == 0).all() and (out[1, 2500:] == 0).all()
+
+
+def test_kpconv_kernel_refuses_grad(dev):
+    case = list(_kpconv_case(dev, 6, 48, seed=1, n=300, valid=(300, 200)))
+    case[5] = case[5].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kp.kpconv(*case)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_kpconv_block_takes_kernel_in_eval_and_plain_in_training(dev, residual):
+    torch.manual_seed(7)
+    c_in = 48 if residual else 6
+    block = st.KPConvBlock(c_in, 48, 0.04, 1.0, residual=residual).to(dev)
+    coord, feat, *_ = _kpconv_case(dev, c_in, 48, seed=8, n=1500, valid=(1500, 900))
+    mask = torch.arange(1500, device=dev)[None] < torch.tensor([[1500], [900]], device=dev)
+    k1, before = geometry.KNN_LAUNCHES, kp.KPCONV_LAUNCHES
+    block.eval()
+    with torch.inference_mode():
+        out = block(feat, coord, mask)
+        with _cuda.plain_versions():
+            ref = block(feat, coord, mask)
+    assert (geometry.KNN_LAUNCHES, kp.KPCONV_LAUNCHES) == (k1 + 1, before + 1)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    with pytest.raises(RuntimeError, match="no backward"):
+        block(feat, coord, mask)  # eval, a gradient asked of the kernel
+    block.train()
+    block(feat, coord, mask).sum().backward()
+    assert kp.KPCONV_LAUNCHES == before + 1
+    assert block.kpconv.weight.grad.abs().max() > 0

@@ -1,7 +1,8 @@
 """The PyTorch port runs where JAX is not installed (the GPU machine has
 none): with ``import jax`` / ``import flax`` made to fail, the whole
-package imports, the shipped open-set config loads, a Seg26 forward runs
-on the CPU and the open-set trainer takes one training step.  The port's
+package imports, the shipped open-set configs load, a Seg26 forward and a
+narrow Stratified Transformer forward (ST-v1m1 + ST recognizer) run on the
+CPU and the open-set trainer takes one training step.  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
 """
@@ -63,6 +64,25 @@ with torch.inference_mode():
 assert out["seg_logits"].shape == (1, n, 13) and score.shape == (1, n)
 assert torch.isfinite(out["seg_logits"]).all() and torch.isfinite(score).all()
 
+# the shipped Stratified Transformer config at narrow widths: ST-v1m1 + the
+# ST recognizer, eval forward and score
+st_cfg = default_config_parser(
+    ROOT + "/configs/s3dis/openseg-st-v1m1-0-origin-pointpdf-v1m1-base.py")
+assert st_cfg.model.backbone.type == "ST-v1m1" and st_cfg.optimizer.type == "AdamW"
+narrow = dict(channels=[16, 32, 32, 64], num_heads=[1, 2, 2, 4])
+st_cfg.model.backbone.update(depths=[1, 2, 2, 1], k_local=8, k_sparse=4, **narrow)
+st_cfg.recognizer.recognizer.channels = narrow["channels"]
+st_model = build_model(dict(st_cfg.model)).eval()
+st_rec = build_recognizer(st_cfg.recognizer)
+st_rec.model.eval()
+with torch.inference_mode():
+    out = st_model(batch)
+    score = st_rec.score(out["seg_logits"], st_rec.model(out["intermediates"]))
+assert out["seg_logits"].shape == (1, n, 13) and score.shape == (1, n)
+assert torch.isfinite(out["seg_logits"]).all() and torch.isfinite(score).all()
+assert out["intermediates"]["enc3"].feat.shape == (1, n // 64, 64)
+assert (out["seg_logits"][0, 400:] == 0).all()
+
 # one open-set training step of Seg26 + the PDF recognizer
 from pointcloudpdf_tpu_torch.datasets import DATASETS
 from pointcloudpdf_tpu_torch.engines.train import TRAINERS
@@ -109,7 +129,9 @@ def test_port_runs_without_jax():
 
 @pytest.mark.parametrize("path", [
     "pointcloudpdf_tpu_torch", "chip_smoke.py", "tools/test_torch.py",
-    "tools/train_torch.py"])
+    "tools/train_torch.py", "tools/profile_train_torch.py",
+    "tools/profile_st_torch.py", "tools/_profile_torch.py",
+    "tests/test_torch_kernels.py"])
 def test_no_jax_import_in_port_sources(path):
     # the JAX package is off limits too, every module of it
     pattern = re.compile(r"^\s*(import|from) (jax|flax|pointcloudpdf_tpu\b(?!_torch))")

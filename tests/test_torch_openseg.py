@@ -2,7 +2,9 @@
 the recognizer's schedule, score sheets and loss, the copied host
 pseudo-labelling pipeline (bit-identical masks), one ``OpenSegTrainer``
 step past ``start_epoch`` (Seg26 + the PDF recognizer, weights through the
-bridge), and the frozen recognizer before ``start_epoch``.
+bridge), the frozen recognizer before ``start_epoch``, and the first
+active step behind two frozen ones (the optimizer state that a frozen
+recognizer gathers).
 """
 
 import copy
@@ -133,13 +135,8 @@ def test_pseudo_label_copy_is_bit_identical():
     np.testing.assert_array_equal(via, got)
 
 
-@pytest.fixture(scope="module")
-def built(tmp_path_factory):
-    """Both trainers, built (and the JAX steps compiled) once."""
-    from pointcloudpdf_tpu.ops import geometry as jgeo
-
-    old, jgeo.FORCE_KNN_PATH = jgeo.FORCE_KNN_PATH, "exact"
-    cfg = dict(copy.deepcopy(OPEN_CFG), save_path=str(tmp_path_factory.mktemp("open")))
+def build_pair(cfg):
+    """Both trainers on one config, one seeded batch and a perturbed start."""
     jtrainer = JAX_TRAINERS.build(dict(type="OpenSegTrainer", cfg=JaxConfig(cfg)))
     trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=Config(cfg)))
     record_gradients(jtrainer)
@@ -151,16 +148,30 @@ def built(tmp_path_factory):
     jbatch = jtrainer.device_batch(np_batch)
     jtrainer.initialize_state(jbatch)
     start = perturbed_start(jtrainer, seed=6)
-    yield jtrainer, trainer, np_batch, jbatch, start
+    return jtrainer, trainer, np_batch, jbatch, start
+
+
+@pytest.fixture(scope="module")
+def exact_knn():
+    from pointcloudpdf_tpu.ops import geometry as jgeo
+
+    old, jgeo.FORCE_KNN_PATH = jgeo.FORCE_KNN_PATH, "exact"
+    yield
     jgeo.FORCE_KNN_PATH = old
 
 
-@pytest.fixture
-def trainers(built):
+@pytest.fixture(scope="module")
+def built(tmp_path_factory, exact_knn):
+    """Both trainers, built (and the JAX steps compiled) once."""
+    return build_pair(dict(copy.deepcopy(OPEN_CFG),
+                           save_path=str(tmp_path_factory.mktemp("open"))))
+
+
+def reset_to_start(pair):
     """The two trainers reset to the shared seeded start, fresh optimizers."""
     from pointcloudpdf_tpu.parallel.mesh import replicate_tree
 
-    jtrainer, trainer, np_batch, jbatch, start = built
+    jtrainer, trainer, np_batch, jbatch, start = pair
     jtrainer.state = replicate_tree(jtrainer.state.replace(
         params=start["params"], batch_stats=start["batch_stats"],
         opt_state=jtrainer.tx.init(start["params"]),  # holds the gradient too
@@ -170,7 +181,12 @@ def trainers(built):
             {k: start[k][name] for k in start}), strict=True)
     trainer.optimizer = trainer.build_optimizer()
     trainer._host_step = 0
-    return built
+    return pair
+
+
+@pytest.fixture
+def trainers(built):
+    return reset_to_start(built)
 
 
 def test_open_seg_step_past_start_epoch_matches_jax(trainers):
@@ -228,3 +244,37 @@ def test_recognizer_frozen_before_start_epoch(trainers):
     before = start["params"]["model"]["backbone_module"]["cls2"]["kernel"]
     after = trainer.state_dict()["params"]["model"]["backbone_module"]["cls2"]["kernel"]
     assert np.abs(after - before).max() > 0
+
+
+def test_active_step_behind_two_frozen_steps_matches_jax(tmp_path, exact_knn):
+    """SGD with momentum 0.9 and weight decay at a rate where the optimizer
+    state shows: while the recognizer is frozen its momentum trace gathers
+    weight decay in both packages (the JAX step zeroes the recognizer's
+    updates, not its gradients), so the first active step moves it by
+    lr * 0.9 * trace more than a step from an empty state would (here
+    1.7e-3 of each weight).  After two frozen steps and one active step the
+    recognizer's parameters agree within 1e-5, and they stayed bit-unchanged
+    through the frozen steps."""
+    cfg = copy.deepcopy(OPEN_CFG)
+    cfg.update(save_path=str(tmp_path),
+               optimizer=dict(type="SGD", lr=0.02, momentum=0.9, weight_decay=0.05),
+               scheduler=dict(type="MultiStepLR", milestones=[0.9], gamma=0.1))
+    jtrainer, trainer, np_batch, jbatch, start = reset_to_start(build_pair(cfg))
+    batch = trainer.device_batch(np_batch)
+    rec_w = trainer.recognizer.loss_weight(1)
+    for step, w in enumerate((0.0, 0.0, rec_w)):
+        jtrainer.state, _ = jtrainer._train_step(
+            jtrainer.state, jbatch, jax.random.PRNGKey(step),
+            jnp.asarray(w, jnp.float32))
+        trainer._dispatch_train(batch, w)
+        if step == 1:
+            frozen = state_dict_to_jax(trainer._rec_module.state_dict())["params"]
+            jax.tree_util.tree_map(np.testing.assert_array_equal, frozen,
+                                   start["params"]["recognizer"])
+    got = state_dict_to_jax(trainer._rec_module.state_dict())["params"]
+    ref = jax.tree_util.tree_map(np.asarray, jtrainer.state.params["recognizer"])
+    moved = jax.tree_util.tree_map(lambda a, b: np.abs(a - b).max(), ref,
+                                   start["params"]["recognizer"])
+    assert max(jax.tree_util.tree_leaves(moved)) > 1e-3
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_allclose(a, b, rtol=0, atol=1e-5), got, ref)

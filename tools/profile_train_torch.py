@@ -15,9 +15,7 @@ JSON.  Needs a CUDA device.
 """
 
 import argparse
-import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -28,26 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-
-KINDS = (
-    ("K1 kNN", ("knn_kernel",)),
-    ("K2 FPS", ("fps_",)),
-    ("K4 backward", ("attn_bwd_kernel",)),
-    ("K4 forward / K3", ("attn_kernel",)),
-    ("GEMM", ("gemm", "cutlass", "cublas", "gemv")),
-    ("sort", ("sort", "radix")),
-    ("optimizer", ("multi_tensor", "foreach", "fused_sgd")),
-    ("gather/scatter", ("index", "gather", "scatter", "take_along")),
-    ("reduce", ("reduce",)),
-)
-
-
-def kind_of(name):
-    low = name.lower()
-    for kind, keys in KINDS:
-        if any(k in low for k in keys):
-            return kind
-    return "element-wise and other"
+from _profile_torch import card_line, profile_call, write_result  # noqa: E402
 
 
 def main():
@@ -61,9 +40,7 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card)
 
     from pointcloudpdf_tpu_torch.engines import default_config_parser
@@ -134,41 +111,7 @@ def main():
               f"stats pass forward {result['stats_pass_forward_ms']:.1f} ms; "
               f"peak memory {result['peak_memory_gib']:.2f} GiB")
 
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kinds, launches = {}, {}
-        kernels = [ev for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA]
-        for ev in kernels:
-            dev_us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-            if dev_us <= 0:
-                continue
-            k = kind_of(ev.key)
-            kinds[k] = kinds.get(k, 0.0) + dev_us / 1e3
-            launches[k] = launches.get(k, 0) + ev.count
-        busy = sum(kinds.values())
-        result.update(profiled_wall_ms=wall_ms, device_busy_ms=busy,
-                      idle_share_profiled=1 - busy / wall_ms,
-                      idle_share_unprofiled=1 - busy / host_ms,
-                      by_kind_ms=kinds, launches_by_kind=launches)
-        print(f"profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, "
-              f"idle share {1 - busy / wall_ms:.3f} (profiled), "
-              f"{1 - busy / host_ms:.3f} against the unprofiled host clock")
-        for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
-            print(f"  {k:26s} {ms:9.2f} ms  {100 * ms / busy:5.1f}%  "
-                  f"{launches[k]} launches")
-        top = sorted(kernels, key=lambda e: -getattr(
-            e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)))[:16]
-        for ev in top:
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            print(f"    {us / 1e3:9.2f} ms x{ev.count:5d}  {ev.key[:90]}")
+        result.update(profile_call(step, host_ms, "step", top=16))
 
         # the pseudo-label pipeline: score pass, fetch, host graph stage
         va_before = va.ATTENTION_LAUNCHES
@@ -192,12 +135,7 @@ def main():
               f"ms: hidden = {result['graph_stage_hidden']}), flagged "
               f"{result['pseudo_flagged']:.4f}")
 
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(result, f, indent=1)
-    print(json.dumps({k: v for k, v in result.items()
-                      if not isinstance(v, (dict, list))}))
+    write_result(result, args.out)
 
 
 if __name__ == "__main__":
