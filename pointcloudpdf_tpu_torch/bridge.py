@@ -5,7 +5,8 @@ A JAX tree is ``{"params": {...}, "batch_stats": {...}}`` of numpy arrays
 (what the JAX package's checkpoints pickle).  The torch names follow the
 reference (Pointcept) layout, so this map is the reference importer's
 ``_pt_v1_rules`` and ``_st_v1m1_rules`` (tools/import_reference_checkpoint.py)
-read backwards.
+read backwards; that importer has no PT-v2 rules, and the PT-v2 map below
+follows the reference's ``point_transformer_v2m2_base.py`` names.
 
 Leaf transforms:
 
@@ -75,6 +76,31 @@ block; ``num_layers`` is read off the keys)
 ST recognizer (``STRecognizer``)
   upsamples.{d}.linear1.0 / .1, linear2.0 / .1   up{d}/norm1 / linear1, norm2 / linear2
   classifier.0 / .1 / .3                      conf_fc1 / conf_bn / conf_fc2
+
+Point Transformer V2 (``{b}`` a block, the same index on both sides; a
+torch BN is the ``.norm`` of a ``PointBatchNorm``)
+  backbone.patch_embed.proj.0 / .1.norm       patch_proj / patch_bn
+  backbone.patch_embed.blocks.blocks.{b}.     patch_blocks/block{b}/
+  backbone.enc_stages.{s}.down.fc / .norm.norm   enc{s}_pool/fc / norm
+  backbone.enc_stages.{s}.blocks.blocks.{b}.     enc{s}_blocks/block{b}/
+  backbone.dec_stages.{s}.up.proj.0 / .1.norm    dec{s}_unpool/proj_fc / proj_bn
+  backbone.dec_stages.{s}.up.proj_skip.0 / .1.norm   dec{s}_unpool/skip_fc / skip_bn
+  backbone.dec_stages.{s}.blocks.blocks.{b}.     dec{s}_blocks/block{b}/
+  backbone.seg_head.0 / .1.norm / .3          seg_fc1 / seg_bn / seg_fc2
+  in a block:
+  fc1 / norm1.norm / norm2.norm / fc3 / norm3.norm   fc1 / norm1 / norm2 / fc3 / norm3
+  attn.linear_q.0 / attn.q_fc1 / attn.linear_q.1.norm   attn/linear_q / q_fc1 / q_bn
+  attn.linear_k.0 / attn.k_fc1 / attn.linear_k.1.norm   attn/linear_k / k_fc1 / k_bn
+  attn.linear_v                               attn/linear_v
+  attn.linear_p_bias.0 / .1.norm / .3         attn/peb_fc1 / peb_bn / peb_fc2
+  attn.linear_p_multiplier.0 / .1.norm / .3   attn/pem_fc1 / pem_bn / pem_fc2
+  attn.weight_encoding.0 / .1.norm / .3       attn/we_fc1 / we_bn / we_fc2
+
+Two differences from the reference are the JAX package's and carry over as
+they are.  Its PT-v2 attention applies a second Linear to q and to k ahead of
+their BatchNorms (``q_fc1`` / ``k_fc1``, no reference counterpart: a
+reference checkpoint leaves them to be filled); its ST LayerNorms run at
+Flax's epsilon, 1e-6, where the reference's run at 1e-5.
 """
 
 from __future__ import annotations
@@ -137,6 +163,41 @@ _ST_RULES = [
     ("classifier.3", "conf_fc2", "linear"),
 ]
 
+# PT-v2: a block's tail under its path, both sides; the attention's three
+# MLPs as (reference name, JAX prefix)
+_PTV2_BLOCK_TAILS = (
+    ("fc1", "fc1", "linear"), ("norm1.norm", "norm1", "bn"),
+    *[t for n in ("q", "k") for t in (
+        (f"attn.linear_{n}.0", f"attn/linear_{n}", "linear"),
+        (f"attn.{n}_fc1", f"attn/{n}_fc1", "linear"),
+        (f"attn.linear_{n}.1.norm", f"attn/{n}_bn", "bn"))],
+    ("attn.linear_v", "attn/linear_v", "linear"),
+    *[t for ref, jp in (("linear_p_bias", "peb"), ("linear_p_multiplier", "pem"),
+                        ("weight_encoding", "we")) for t in (
+        (f"attn.{ref}.0", f"attn/{jp}_fc1", "linear"),
+        (f"attn.{ref}.1.norm", f"attn/{jp}_bn", "bn"),
+        (f"attn.{ref}.3", f"attn/{jp}_fc2", "linear"))],
+    ("norm2.norm", "norm2", "bn"), ("fc3", "fc3", "linear"),
+    ("norm3.norm", "norm3", "bn"),
+)
+_PTV2_RULES = [
+    ("backbone.patch_embed.proj.0", _B + "patch_proj", "linear"),
+    ("backbone.patch_embed.proj.1.norm", _B + "patch_bn", "bn"),
+    *[(f"backbone.patch_embed.blocks.blocks.{{b}}.{tt}",
+       _B + f"patch_blocks/block{{b}}/{jt}", k) for tt, jt, k in _PTV2_BLOCK_TAILS],
+    *[(f"backbone.{{st}}_stages.{{s}}.blocks.blocks.{{b}}.{tt}",
+       _B + f"{{st}}{{s}}_blocks/block{{b}}/{jt}", k) for tt, jt, k in _PTV2_BLOCK_TAILS],
+    ("backbone.enc_stages.{s}.down.fc", _B + "enc{s}_pool/fc", "linear"),
+    ("backbone.enc_stages.{s}.down.norm.norm", _B + "enc{s}_pool/norm", "bn"),
+    ("backbone.dec_stages.{s}.up.proj.0", _B + "dec{s}_unpool/proj_fc", "linear"),
+    ("backbone.dec_stages.{s}.up.proj.1.norm", _B + "dec{s}_unpool/proj_bn", "bn"),
+    ("backbone.dec_stages.{s}.up.proj_skip.0", _B + "dec{s}_unpool/skip_fc", "linear"),
+    ("backbone.dec_stages.{s}.up.proj_skip.1.norm", _B + "dec{s}_unpool/skip_bn", "bn"),
+    ("backbone.seg_head.0", _B + "seg_fc1", "linear"),
+    ("backbone.seg_head.1.norm", _B + "seg_bn", "bn"),
+    ("backbone.seg_head.3", _B + "seg_fc2", "linear"),
+]
+
 # (torch module path, JAX module path, kind)
 RULES: List[Tuple[str, str, str]] = [
     ("backbone.enc{s}.0.linear", _B + "enc{s}/down/linear", "linear"),
@@ -157,10 +218,12 @@ RULES: List[Tuple[str, str, str]] = [
     ("conf.0", "conf1", "linear"),
     ("conf.1", "conf_bn", "bn"),
     ("conf.3", "conf2", "linear"),
+    *_PTV2_RULES,
     *_ST_RULES,
 ]
 
-_GROUPS = {"st": r"(?P<st>enc|dec)", "s": r"(?P<s>\d)", "i": r"(?P<i>\d+)",
+_GROUPS = {"st": r"(?P<st>enc|dec)", "s": r"(?P<s>\d)", "b": r"(?P<b>\d+)",
+           "i": r"(?P<i>\d+)",
            "j": r"(?P<j>\d+)", "d": r"(?P<d>\d+)", "k": r"(?P<k>\d)",
            "u": r"(?P<u>\d+)", "w": r"(?P<w>\d+)"}
 

@@ -3,3 +3,4 @@ from .default import DefaultSegmentor
 from .norm import MaskedBatchNorm
 from . import point_transformer  # registers PointTransformer-Seg26/38/50
 from . import stratified_transformer  # registers ST-v1m1 / ST-v1m2
+from . import point_transformer_v2  # registers PT-v2m2 / PT-v2m1

@@ -24,7 +24,9 @@ class DefaultSegmentor(nn.Module):
         self.criteria = build_criteria(criteria)
 
     def forward(self, input_dict: Dict) -> Dict:
-        seg_logits, intermediates = self.backbone(input_dict)
+        out = self.backbone(input_dict)
+        # backbones without intermediates (PT-v2) return the logits alone
+        seg_logits, intermediates = out if isinstance(out, tuple) else (out, {})
         return dict(seg_logits=seg_logits, intermediates=intermediates)
 
     def loss(self, seg_logits, target):

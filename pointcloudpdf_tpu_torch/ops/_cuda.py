@@ -60,6 +60,10 @@ _SIGNATURES = {
     # coord, feat, idx, nmask, kp, weight, sigma_r, B, N, S, P, C_in, C_out,
     # out, stream
     "pcpdf_kpconv": [_P] * 6 + [_F] + [_I] * 6 + [_P, _P],
+    # q, k, v, coord, idx, nmask, params, pm2, pb2, pe_mul, pe_bias, B, N, C,
+    # S, out, stream
+    "pcpdf_gva": [_P] * 9 + [_I] * 6 + [_P, _P],
+    "pcpdf_gva_params": [_I],
 }
 
 

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1 kNN, K2 FPS, K3 vector attention, K4 its
-training forward + backward, K5 cRPE window attention, K6 KPConv) against
-their plain PyTorch versions on a GPU.
+training forward + backward, K5 cRPE window attention, K6 KPConv, K7 PT-v2
+grouped vector attention) against their plain PyTorch versions on a GPU.
 
 The kernels have no CPU mode, so every test here carries the ``cuda``
 marker and skips where no CUDA device is present.  The file imports
@@ -22,9 +22,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the read-back of K5's bins)
 from pointcloudpdf_tpu_torch.models.norm import MaskedBatchNorm
 from pointcloudpdf_tpu_torch.models.point_transformer import PointTransformerLayer
+from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2
 from pointcloudpdf_tpu_torch.models.utils.structure import Points
 from pointcloudpdf_tpu_torch.models.stratified_transformer import st
 from pointcloudpdf_tpu_torch.ops import _cuda, geometry, sampling
+from pointcloudpdf_tpu_torch.ops import gva
 from pointcloudpdf_tpu_torch.ops import kpconv as kp
 from pointcloudpdf_tpu_torch.ops import st_attention as sa
 from pointcloudpdf_tpu_torch.ops import vector_attention as va
@@ -430,3 +432,88 @@ def test_kpconv_block_takes_kernel_in_eval_and_plain_in_training(dev, residual):
     block(feat, coord, mask).sum().backward()
     assert kp.KPCONV_LAUNCHES == before + 1
     assert block.kpconv.weight.grad.abs().max() > 0
+
+
+# -- K7: PT-v2 grouped vector attention ----------------------------------------
+
+
+def _gva_case(dev, c, pe, seed, n=3000, valid=(3000, 1900), s=16):
+    """q/k/v, coords, the s nearest as neighbours (~20% of the slots masked,
+    every 7th query with none) and an eval attention module of width c with
+    random weights and BatchNorm statistics."""
+    gen = torch.Generator().manual_seed(seed)
+    coord, mask = _cloud(seed, len(valid), n, list(valid), dev)
+    idx, d2 = geometry.knn(coord, coord, s, mask)
+    nmask = (torch.isfinite(d2) & mask[..., None]
+             & (torch.rand(idx.shape, generator=gen) >= 0.2).to(dev))
+    nmask[:, ::7] = False
+    torch.manual_seed(seed)
+    attn = ptv2.GroupedVectorAttention(c, c // 8, pe_multiplier=pe[0], pe_bias=pe[1])
+    attn = chip_smoke.randomise_bn(attn, gen).to(dev).eval()
+    q, k, v = (torch.randn((len(valid), n, c), generator=gen).to(dev)
+               for _ in range(3))
+    return (q, k, v, coord, idx, nmask, attn.linear_p_multiplier,
+            attn.linear_p_bias, attn.weight_encoding, c // 8), attn
+
+
+@pytest.mark.parametrize("pe", [(False, True), (True, False), (True, True)])
+@pytest.mark.parametrize("c", [48, 96, 192, 384])
+def test_gva_kernel_matches_plain(dev, c, pe):
+    """K7 within 1e-4 of max |plain| (f32 sums in another order, an online
+    softmax, BatchNorms folded), in every branch combination; queries
+    without a neighbour come out 0."""
+    case, _ = _gva_case(dev, c, pe, seed=c + 2 * pe[0] + pe[1])
+    before = gva.GVA_LAUNCHES
+    with torch.inference_mode():
+        out = gva.grouped_vector_attention(*case)
+        with _cuda.plain_versions():
+            ref = gva.grouped_vector_attention(*case)
+    assert gva.GVA_LAUNCHES == before + 1
+    assert float(ref.abs().max()) > 0.1
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert (out[:, ::7] == 0).all()
+
+
+def test_gva_kernel_all_masked_batch(dev):
+    case, _ = _gva_case(dev, 48, (False, True), seed=4)
+    case = list(case)
+    case[5] = torch.zeros_like(case[5])
+    with torch.inference_mode():
+        assert (gva.grouped_vector_attention(*case) == 0).all()
+
+
+def test_gva_kernel_refuses_grad(dev):
+    """A gradient asked of the inference-only kernel raises, through the
+    inputs or the weights; under no_grad it runs."""
+    case, _ = _gva_case(dev, 48, (False, True), seed=5, n=200, valid=(200, 150))
+    case = list(case)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gva.grouped_vector_attention(*case)      # the weights want a gradient
+    case[0] = case[0].requires_grad_(True)
+    with torch.no_grad():
+        assert gva.grouped_vector_attention(*case).shape == (2, 200, 48)
+
+
+def test_ptv2_block_takes_kernel_in_eval_and_plain_in_training(dev):
+    """The dispatch of the inference-only kernel: eval under no_grad
+    launches K7, eval with a gradient asked of it raises, a training block
+    takes the plain version with batch statistics and gives a gradient."""
+    torch.manual_seed(6)
+    block = ptv2.Block(96, 12, pe_multiplier=True, pe_bias=True).to(dev)
+    (q, _, _, coord, idx, nmask, *_), _ = _gva_case(
+        dev, 96, (True, True), seed=6, n=500, valid=(500, 300))
+    mask = torch.arange(500, device=dev)[None] < torch.tensor([[500], [300]], device=dev)
+    before = gva.GVA_LAUNCHES
+    block.eval()
+    with torch.inference_mode():
+        out = block(q, coord, idx, nmask, mask)
+        with _cuda.plain_versions():
+            ref = block(q, coord, idx, nmask, mask)
+    assert gva.GVA_LAUNCHES == before + 1
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    with pytest.raises(RuntimeError, match="no backward"):
+        block(q, coord, idx, nmask, mask)
+    block.train()
+    block(q, coord, idx, nmask, mask).sum().backward()
+    assert gva.GVA_LAUNCHES == before + 1
+    assert block.attn.linear_p_bias[3].weight.grad.abs().max() > 0

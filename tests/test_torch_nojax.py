@@ -1,8 +1,8 @@
 """The PyTorch port runs where JAX is not installed (the GPU machine has
 none): with ``import jax`` / ``import flax`` made to fail, the whole
-package imports, the shipped open-set configs load, a Seg26 forward and a
-narrow Stratified Transformer forward (ST-v1m1 + ST recognizer) run on the
-CPU and the open-set trainer takes one training step.  The port's
+package imports, the shipped open-set configs load, a Seg26 forward, a
+narrow Stratified Transformer forward (ST-v1m1 + ST recognizer) and a narrow
+PT-v2m2 forward run on the CPU and the open-set trainer takes one training step.  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
 """
@@ -83,6 +83,25 @@ assert torch.isfinite(out["seg_logits"]).all() and torch.isfinite(score).all()
 assert out["intermediates"]["enc3"].feat.shape == (1, n // 64, 64)
 assert (out["seg_logits"][0, 400:] == 0).all()
 
+# the shipped PT-v2m2 config at narrow widths: eval forward, nothing dropped
+# by the pooling capacity
+from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2
+
+v2_cfg = default_config_parser(ROOT + "/configs/s3dis/semseg-pt-v2m2-0-base.py")
+assert v2_cfg.model.backbone.type == "PT-v2m2"
+v2_cfg.model.backbone.update(
+    patch_embed_channels=16, patch_embed_groups=2, enc_depths=(1, 1, 1),
+    enc_channels=(16, 32, 32), enc_groups=(2, 4, 4), dec_channels=(16, 16, 32),
+    dec_groups=(2, 2, 4), grid_sizes=(0.2, 0.4, 0.8))
+v2_model = build_model(dict(v2_cfg.model)).eval()
+ptv2.capacity_dropped_points(reset=True)
+with torch.inference_mode():
+    out = v2_model(batch)
+assert out["seg_logits"].shape == (1, n, 13)
+assert torch.isfinite(out["seg_logits"]).all()
+assert (out["seg_logits"][0, 400:] == 0).all()
+assert ptv2.capacity_dropped_points(reset=True) == 0
+
 # one open-set training step of Seg26 + the PDF recognizer
 from pointcloudpdf_tpu_torch.datasets import DATASETS
 from pointcloudpdf_tpu_torch.engines.train import TRAINERS
@@ -130,7 +149,8 @@ def test_port_runs_without_jax():
 @pytest.mark.parametrize("path", [
     "pointcloudpdf_tpu_torch", "chip_smoke.py", "tools/test_torch.py",
     "tools/train_torch.py", "tools/profile_train_torch.py",
-    "tools/profile_st_torch.py", "tools/_profile_torch.py",
+    "tools/profile_st_torch.py", "tools/profile_ptv2_torch.py",
+    "tools/_profile_torch.py",
     "tests/test_torch_kernels.py"])
 def test_no_jax_import_in_port_sources(path):
     # the JAX package is off limits too, every module of it

@@ -3,11 +3,14 @@ the same pickled JAX checkpoint (BatchNorm statistics randomised), over a
 tiny synthetic scene in the S3DIS on-disk layout.  Both run in-process;
 the port with ``device="cpu"``, as asked for by name.  The PT-v1 pair is
 built through the tester registry; the Stratified Transformer pair runs
-the port through ``tools/test_torch.py --device cpu`` on a config file.
+the port through ``tools/test_torch.py --device cpu`` on a config file, and
+the PT-v2 pair runs both tools, the JAX ``tools/test.py`` and the port's
+``tools/test_torch.py --device cpu``, on a closed-set config.
 """
 
 import copy
 import functools
+import logging
 import os
 import runpy
 import sys
@@ -214,6 +217,116 @@ def test_st_through_test_tool_matches_jax(tmp_path):
     assert (pred == jpred).mean() >= 0.999
     np.testing.assert_allclose(score, jscore, atol=1e-4)
     assert len(np.unique(jpred)) > 3 and jscore.std() > 0
+
+
+PTV2_MODEL = dict(
+    type="DefaultSegmentor",
+    backbone=dict(
+        type="PT-v2m2", in_channels=6, num_classes=13, patch_embed_depth=1,
+        patch_embed_channels=16, patch_embed_groups=2, patch_embed_neighbours=8,
+        enc_depths=(1, 1, 1), enc_channels=(16, 32, 32), enc_groups=(2, 4, 4),
+        enc_neighbours=(8, 8, 8), dec_depths=(1, 1, 1), dec_channels=(16, 16, 32),
+        dec_groups=(2, 2, 4), dec_neighbours=(8, 8, 8), grid_sizes=(0.2, 0.4, 0.8),
+        pe_multiplier=False, pe_bias=True, level_capacity_factor=0.5),
+    criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)])
+
+
+def test_ptv2_through_test_tool_matches_jax(tmp_path, monkeypatch):
+    """The JAX ``tools/test.py`` (unfused grouped vector attention, exact
+    kNN) and the port's ``tools/test_torch.py --device cpu`` on one small
+    PT-v2m2 config and one closed-set JAX checkpoint (``SemSegTester``):
+    pred.npy equal, the same mIoU/mAcc/allAcc line, and no point dropped by
+    the pooling capacity on the port's side.  The scene is free of kNN
+    near-ties (asserted over every kNN the port's run makes)."""
+    from pointcloudpdf_tpu.engines import defaults as jax_defaults
+    from pointcloudpdf_tpu.models.point_transformer_v2 import ptv2 as jptv2
+    from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2 as port_ptv2
+    from test_torch_st import knn_tie_gap
+
+    monkeypatch.setattr(jgeo, "FORCE_KNN_PATH", "exact")
+    monkeypatch.setattr(jptv2, "FUSED_GVA", "off")
+    # the JAX tool's persistent compile cache would outlive this test
+    monkeypatch.setattr(jax_defaults, "enable_compile_cache", lambda *a, **k: None)
+    rng = np.random.RandomState(3)
+    data_root = tmp_path / "s3dis"
+    os.makedirs(data_root / "Area_5")
+    n = 1500
+    coord = (rng.rand(n, 3) * np.array([2.0, 1.6, 1.0])).astype(np.float32)
+    color = (rng.rand(n, 3) * 255).astype(np.float32)
+    seg = (np.floor(coord[:, 0] * 3) + 3 * np.floor(coord[:, 1] * 2)).astype(np.int64) % 13
+    np.savez(data_root / "Area_5" / "office_1.npz", coord=coord, color=color,
+             semantic_gt=seg, instance_gt=np.zeros_like(seg))
+    # weights initialised on a cloud like a fragment of the scene (centred
+    # coords, colours in [0, 1]); then the classifier's BatchNorm takes the
+    # statistics its input really has there and its last Dense is redrawn
+    # (sigma 0.3), so that the classes compete and the argmax says something
+    part = (rng.rand(1, 512, 3) * [2.0, 1.6, 1.0] - [1.0, 0.8, 0.0]).astype(np.float32)
+    batch = dict(coord=jnp.asarray(part),
+                 feat=jnp.asarray(np.concatenate([part, rng.rand(1, 512, 3)], -1),
+                                  jnp.float32),
+                 mask=jnp.ones((1, 512), bool))
+    jm = jax_build_model(PTV2_MODEL)
+    v = jax.jit(functools.partial(jm.init, train=False))(
+        {"params": jax.random.PRNGKey(0)}, batch)
+    v = randomise_bn(jax.tree_util.tree_map(np.array, dict(v)), rng)
+    _, inter = jax.jit(functools.partial(jm.apply, train=False,
+                                         capture_intermediates=True,
+                                         mutable=["intermediates"]))(v, batch)
+    head = np.asarray(inter["intermediates"]["backbone_module"]["seg_fc1"]["__call__"][0][0])
+    stats = v["batch_stats"]["backbone_module"]["seg_bn"]
+    stats["mean"][...] = head.mean(0)
+    stats["var"][...] = head.var(0)
+    fc2 = v["params"]["backbone_module"]["seg_fc2"]["kernel"]
+    fc2[...] = 0.3 * rng.standard_normal(fc2.shape)
+    weight = str(tmp_path / "model.pth")
+    save_checkpoint(weight, {"epoch": 1, "state": {"params": v["params"],
+                                                   "batch_stats": v["batch_stats"]}})
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    saves, logged = {}, {}
+    for name, tool, extra in (("jax", "test.py", []),
+                              ("port", "test_torch.py", ["--device", "cpu"])):
+        saves[name] = str(tmp_path / f"{name}_exp")
+        cfg = dict(_cfg_dict(str(data_root), weight, saves[name], PTV2_MODEL, None),
+                   test=dict(type="SemSegTester"), seed=0, epoch=1, eval_epoch=1,
+                   batch_size=1)
+        config = str(tmp_path / f"semseg-pt-v2m2-small-{name}.py")
+        with open(config, "w") as f:
+            f.write("".join(f"{key} = {value!r}\n" for key, value in cfg.items()
+                            if key not in ("recognizer", "unknown_label")))
+        monkeypatch.setattr(sys, "argv", [f"tools/{tool}", "--config-file", config,
+                                          *extra])
+        if name == "port":
+            port_knn, gaps = port_ptv2.knn, []
+
+            def recording_knn(query, ref, k, ref_mask=None):
+                gaps.append(knn_tie_gap(query, ref, k, ref_mask))
+                return port_knn(query, ref, k, ref_mask)
+
+            monkeypatch.setattr(port_ptv2, "knn", recording_knn)
+            port_ptv2.capacity_dropped_points(reset=True)
+        # a package's logger is made once a process, with the log file of its
+        # first run: read what this run logs through a handler of its own
+        logger = logging.getLogger({"jax": "pointcloudpdf_tpu",
+                                    "port": "pointcloudpdf_tpu_torch"}[name])
+        handler, logged[name] = logging.Handler(), []
+        handler.emit = lambda record, out=logged[name]: out.append(record.getMessage())
+        logger.addHandler(handler)
+        try:
+            runpy.run_path(os.path.join(root, "tools", tool), run_name="__main__")
+        finally:
+            logger.removeHandler(handler)
+    assert port_ptv2.capacity_dropped_points(reset=True) == 0
+    assert len(gaps) >= 8 and min(gaps) >= 5e-7, (len(gaps), min(gaps))
+
+    pred = np.load(os.path.join(saves["port"], "result", "office_1_pred.npy"))
+    jpred = np.load(os.path.join(saves["jax"], "result", "office_1_pred.npy"))
+    assert pred.shape == jpred.shape == (1500,)
+    np.testing.assert_array_equal(pred, jpred)
+    assert len(np.unique(jpred)) > 3
+    lines = {name: [m for m in msgs if m.startswith("Val result: mIoU/mAcc/allAcc")]
+             for name, msgs in logged.items()}
+    assert len(lines["port"]) == 1 and lines["port"] == lines["jax"]
 
 
 def test_sem_seg_tester_matches_jax_votes(setup):

@@ -1,8 +1,9 @@
 """What the port's profiling tools share: the card's name line, the split of
-one profiled call's device time by kind of kernel, and the JSON record.
+one profiled call's device time by kind of kernel, the JSON record, and the
+whole profile of one serving forward through a tester.
 
-Used by ``tools/profile_train_torch.py`` and ``tools/profile_st_torch.py``;
-each builds its own batch and the closure to profile.
+Used by ``tools/profile_train_torch.py``, ``tools/profile_st_torch.py`` and
+``tools/profile_ptv2_torch.py``.
 """
 
 import json
@@ -18,6 +19,7 @@ KINDS = (
     ("K5 window attention", ("st_attention_kernel",)),
     ("K4 forward / K3", ("attn_kernel",)),
     ("K6 KPConv", ("kpconv_kernel",)),
+    ("K7 grouped vector attention", ("gva_kernel",)),
     ("GEMM", ("gemm", "cutlass", "cublas", "gemv")),
     ("sort", ("sort", "radix")),
     ("optimizer", ("multi_tensor", "foreach", "fused_sgd")),
@@ -95,3 +97,94 @@ def write_result(result, out):
             json.dump(result, f, indent=1)
     print(json.dumps({k: v for k, v in result.items()
                       if not isinstance(v, (dict, list))}))
+
+
+def serving_forward_profile(config, tester, recognizer, iters):
+    """One serving forward of ``config`` through ``tester`` on the largest
+    fragment of a synthetic S3DIS room (``chip_smoke.synthetic_room``), at
+    full width on seeded random weights written through the bridge (with
+    the recognizer's when ``recognizer``): milliseconds per forward on the
+    kernels and on the plain versions (CUDA events and host clock; plain,
+    kernels, kernels, plain), the launches of every kernel in one forward,
+    the profile (``profile_call``) and peak device memory.  Prints them and
+    returns them as a dict."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.test import TESTERS
+    from pointcloudpdf_tpu_torch.models import build_model
+    from pointcloudpdf_tpu_torch.ops import _cuda
+    from pointcloudpdf_tpu_torch.recognizers import build_recognizer
+
+    result = {}
+    with tempfile.TemporaryDirectory() as work:
+        data_root = os.path.join(work, "s3dis")
+        os.makedirs(os.path.join(data_root, "Area_5"))
+        chip_smoke.synthetic_room(np.random.RandomState(0), os.path.join(
+            data_root, "Area_5", "office_1.npz"))
+        weight = os.path.join(work, "model.pth")
+        cfg = default_config_parser(config, {
+            "data_root": data_root, "data.test.data_root": data_root,
+            "weight": weight, "save_path": os.path.join(work, "exp"),
+            "device": "cuda"})
+        torch.manual_seed(0)
+        chip_smoke.random_jax_checkpoint(
+            weight, build_model(dict(cfg.model)),
+            build_recognizer(cfg.recognizer).model if recognizer else None)
+        runner = TESTERS.build(dict(type=tester, cfg=cfg))
+        fragments = runner.test_dataset[0]["fragment_list"]
+        sizes = [len(f["coord"]) for f in fragments]
+        fragment = fragments[int(np.argmax(sizes))]
+        runner.forward_fragment(fragment)  # loads the weights, builds the kernels
+        batch = runner.device_batch(padded_collate_fn([fragment]))
+        result.update(fragment_points=max(sizes), bucket=batch["coord"].shape[1])
+        print(f"fragment of {max(sizes)} points, bucket {batch['coord'].shape[1]}")
+
+        def forward():
+            with torch.inference_mode():
+                runner.forward(batch)
+
+        def timed(n):
+            forward()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                forward()
+            end.record()
+            torch.cuda.synchronize()
+            return (start.elapsed_time(end) / n,
+                    (time.perf_counter() - t0) * 1e3 / n)
+
+        # plain, kernels, kernels, plain: the two compared inside one call
+        with _cuda.plain_versions():
+            plain_a = timed(1)
+        torch.cuda.reset_peak_memory_stats()
+        kernel_a = timed(iters)
+        result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        kernel_b = timed(iters)
+        with _cuda.plain_versions():
+            plain_b = timed(1)
+        result.update(forward_ms_events=[kernel_a[0], kernel_b[0]],
+                      forward_ms_host=[kernel_a[1], kernel_b[1]],
+                      plain_forward_ms_events=[plain_a[0], plain_b[0]])
+        print(f"forward on the kernels: {kernel_a[0]:.2f} / {kernel_b[0]:.2f} ms (CUDA "
+              f"events), {kernel_a[1]:.2f} / {kernel_b[1]:.2f} ms (host clock, synced "
+              f"at the end of {iters}); on the plain versions {plain_a[0]:.1f} / "
+              f"{plain_b[0]:.1f} ms; peak memory {result['peak_memory_gib']:.2f} GiB")
+
+        chip_smoke.reset_launches()
+        forward()
+        counts = chip_smoke.read_launches()
+        result["launches_a_forward"] = {k: v for k, v in counts.items()
+                                        if not isinstance(v, tuple)}
+        print(f"launches a forward: {result['launches_a_forward']}")
+
+        result.update(profile_call(forward, kernel_b[1], "forward"))
+    return result
