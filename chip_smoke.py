@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
 2. build of the CUDA kernels from ``pointcloudpdf_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on CUDA tensors at the
    main path's shapes, with both times (CUDA events) and the least time
-   the card could take for the same work (its bound);
+   the card could take for the same work (its bound); K1 at eight shapes,
+   one of them a val-pass-sized set of 262,144 points, each with the share
+   of the brute-force work that the bound-pruned kernel visited and, where
+   it runs, its plan (prep kernels) against the plain plan;
 4. the serving slice end to end: a seeded synthetic room in the S3DIS
    layout, seeded random Seg50 + PDF-recognizer weights written through
    the bridge as a JAX-layout checkpoint, ``tools/test_torch.py`` on the
@@ -64,6 +67,7 @@ SEED = 0
 DEVICE = "cuda"
 N_MAIN = 65536      # the bucket of a full-size S3DIS fragment
 N_EXACT = 32768     # exact FPS: N points, N/4 picks
+N_VAL = 262144      # a val-pass-sized kNN set, B = 1
 ROOM = (5.0, 4.0, 3.0)  # metres: an S3DIS office
 MIN_FRAGMENT = 32768
 TOL_K3 = 1e-4       # relative to max |plain|: f32 sums in another order
@@ -249,10 +253,12 @@ def random_jax_checkpoint(path, model, recognizer_model=None):
 # phase 3: kernels against their plain versions
 
 
-def check_knn(dev, rng):
+def knn_cases(dev, rng):
+    """K1's phase-3 cases at the main path's shapes: (name, query, ref, k,
+    ref_mask, same), where ``same`` means the queries are the refs."""
     import torch
 
-    from pointcloudpdf_tpu_torch.ops import _cuda, geometry, sampling
+    from pointcloudpdf_tpu_torch.ops import sampling
 
     B, N = 2, N_MAIN
     coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
@@ -269,15 +275,54 @@ def check_knn(dev, rng):
     ds_idx, ds_valid = sampling.blocked_farthest_point_sampling(
         coord1, n1 // 8, mask1, max_group_steps=128)
     ds_coord = coord1.gather(1, ds_idx.long()[..., None].expand(-1, -1, 3))
-    cases = [("self k=16", coord, coord, 16, mask),
-             ("self k=8", coord, coord, 8, mask),
-             ("cross N/4->N k=16", sub, coord, 16, mask),
-             ("interp N->N/4 k=3", coord, sub, 3, sub_mask),
-             (f"self k=32 N={n1}", coord1, coord1, 32, mask1),
-             (f"sparse k=16 {n1}->{n1 // 8} masked", coord1, ds_coord, 16, ds_valid),
-             (f"ball k=34 N={N}", coord, coord, 34, mask)]
+    # a val-pass-sized set (the open-set configs crop val rooms at 800,000
+    # points), from its own seed so that the other phases' inputs stay put
+    big, big_mask = clustered_cloud(np.random.RandomState(SEED + 6), 1, N_VAL, [N_VAL])
+    big = torch.from_numpy(big).to(dev)
+    big_mask = torch.from_numpy(big_mask).to(dev)
+    return [("self k=16", coord, coord, 16, mask, True),
+            ("self k=8", coord, coord, 8, mask, True),
+            ("cross N/4->N k=16", sub, coord, 16, mask, False),
+            ("interp N->N/4 k=3", coord, sub, 3, sub_mask, False),
+            (f"self k=32 N={n1}", coord1, coord1, 32, mask1, True),
+            (f"sparse k=16 {n1}->{n1 // 8} masked", coord1, ds_coord, 16, ds_valid, False),
+            (f"ball k=34 N={N}", coord, coord, 34, mask, True),
+            (f"self k=16 N={N_VAL} B=1", big, big, 16, big_mask, True)]
+
+
+def knn_bounds(q, r, k, m):
+    """K1's bound for the work these inputs need, per the on-chip rule:
+    coordinates, mask and outputs moved once, and 8 flop (3 sub, 3 mul, 2
+    add) for each of the M*k pairs that any exact kNN evaluates; and, for
+    the reader, the brute-force bound (every query against every valid ref
+    of its sample) that the row had before."""
+    B, M = q.shape[:2]
+    n_bytes = B * (M + r.shape[1]) * 12 + B * r.shape[1] + 2 * B * M * k * 4
+    pairs = float(M * m.sum())
+    return bound(n_bytes, 8.0 * B * M * k), bound(n_bytes, 8 * pairs), n_bytes, pairs
+
+
+def visited_share(q, r, k, m, same, chunk=None):
+    """The share of the brute-force work (every query against every valid
+    ref of its sample) that the pruned kernel did on these inputs: a visit
+    of a chunk by a tile counts 32 x chunk pairs; and the most chunks a
+    tile visited."""
+    from pointcloudpdf_tpu_torch.ops import geometry
+
+    chunk = chunk or geometry.knn_chunk(r.shape[1])
+    visits = geometry.knn_pruned_cuda(q, r, k, m, same, visits=True, chunk=chunk)[2]
+    pairs = float(visits.sum()) * geometry.KNN_TILE * chunk
+    return pairs / max(float(q.shape[1] * m.sum()), 1.0), int(visits.max())
+
+
+def check_knn(dev, rng):
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import _cuda, geometry
+
     worst, rows = 0.0, []
-    for name, q, r, k, m in cases:
+    for name, q, r, k, m, same in knn_cases(dev, rng):
+        pruned = r.shape[1] >= geometry.KNN_PRUNE_MIN_REFS
         idx, d2 = geometry.knn(q, r, k, m)
         with _cuda.plain_versions():
             pidx, pd2 = geometry.knn(q, r, k, m)
@@ -294,22 +339,34 @@ def check_knn(dev, rng):
                      .clamp(min=1e-12)).all()),
                f"K1 {name}: idx equal except at {int(diff.sum())} exact ties")
         ms = cuda_ms(lambda: geometry.knn(q, r, k, m), 5)
-        with _cuda.plain_versions():
-            plain_ms = cuda_ms(lambda: geometry.knn(q, r, k, m), 2)
-        # bound: every query against every valid ref of its sample, 8 f32
-        # operations a pair (3 sub, 3 mul, 2 add); query and ref coords and
-        # the mask read once, idx and dist2 written once
-        pairs = float(q.shape[1] * m.sum())
-        n_bytes = (B * (q.shape[1] + r.shape[1]) * 12 + B * r.shape[1]
-                   + 2 * B * q.shape[1] * k * 4)
-        bound_ms, bound_by = bound(n_bytes, 8 * pairs)
-        rows.append((name, ms, plain_ms, bound_ms, bound_by))
-        print(f"  K1 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {pairs:.3e} pairs x 8 flop, "
-              f"{n_bytes:.3e} bytes)")
-    return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
-            "bound_ms": rows[0][3], "bound_by": rows[0][4],
-            "shape": f"self k=16, B=2 x N={N}", "rows": rows}
+        with _cuda.plain_versions():  # one call is enough at the val-pass size
+            plain_ms = cuda_ms(lambda: geometry.knn(q, r, k, m),
+                               1 if q.shape[1] * r.shape[1] * q.shape[0] > 2 ** 34 else 2)
+        share, most = 1.0, None
+        if pruned:
+            share, most = visited_share(q, r, k, m, same)
+            with _cuda.plain_versions():
+                plain_plan = geometry.knn_plan(q, r, m, same)
+            expect(all(torch.equal(a, b) for a, b in zip(
+                geometry.knn_plan(q, r, m, same), plain_plan)),
+                f"K1 {name}: the prep kernels' plan equals the plain plan")
+        (bound_ms, bound_by), (brute_ms, _), n_bytes, pairs = knn_bounds(q, r, k, m)
+        rows.append({"case": name, "kernel": "pruned" if pruned else "brute",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "brute_bound_ms": brute_ms,
+                     "visited_share": share, "most_chunks_a_tile": most})
+        print(f"  K1 {name} ({rows[-1]['kernel']}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, visited {share:.4f} of the pairs (a tile "
+              f"{most} chunks at most), bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} bytes, M*k pairs x 8 "
+              f"flop), brute-force bound {brute_ms:.4f} ms ({pairs:.3e} pairs)")
+    result = {"rows": rows, "max_abs_err": worst}
+    for kind, case in (("pruned", "self k=16"), ("brute", f"sparse k=16 {N_MAIN // 4}->"
+                                                           f"{N_MAIN // 32} masked")):
+        row = next(row for row in rows if row["case"] == case)
+        expect(row["kernel"] == kind, f"K1 {case} takes the {kind} kernel")
+        result[kind] = dict(row, shape=f"{case}, B=2")
+    return result
 
 
 def check_fps(dev, rng):
@@ -835,6 +892,7 @@ def reset_launches():
     from pointcloudpdf_tpu_torch.ops import vector_attention as va
 
     geometry.KNN_LAUNCHES = sampling.FPS_LAUNCHES = 0
+    geometry.KNN_PRUNED_LAUNCHES = geometry.KNN_BRUTE_LAUNCHES = 0
     va.ATTENTION_LAUNCHES = va.ATTENTION_TRAIN_LAUNCHES = 0
     va.ATTENTION_BWD_LAUNCHES = 0
     st_attention.ST_ATTENTION_LAUNCHES = kpconv.KPCONV_LAUNCHES = 0
@@ -851,6 +909,17 @@ def read_launches():
                                        va.ATTENTION_BWD_LAUNCHES),
             "st_attention": st_attention.ST_ATTENTION_LAUNCHES,
             "kpconv": kpconv.KPCONV_LAUNCHES, "gva": gva.GVA_LAUNCHES}
+
+
+def read_knn_kernels():
+    """K1's launches by kernel (they sum to the ``knn`` count: one a call)."""
+    from pointcloudpdf_tpu_torch.ops import geometry
+
+    pruned, brute = geometry.KNN_PRUNED_LAUNCHES, geometry.KNN_BRUTE_LAUNCHES
+    expect(pruned + brute == geometry.KNN_LAUNCHES,
+           f"K1: {pruned} pruned + {brute} brute-force launches = "
+           f"{geometry.KNN_LAUNCHES} calls")
+    return {"knn_pruned": pruned, "knn_brute": brute}
 
 
 def run_tool(tool, argv):
@@ -915,6 +984,7 @@ def run_slice(work, config, name, per_forward=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    knn_kernels = read_knn_kernels()
     forwards = log.count(", Batch: ")
     print(f"  tools/test_torch.py ({tester_type}): {wall:.3f} s, {forwards} forwards; "
           f"launches {launches}")
@@ -987,6 +1057,7 @@ def run_slice(work, config, name, per_forward=None):
           f"{batch['coord'].shape[1]}): kernels {ms:.3f} ms, plain {plain_ms:.3f} ms; "
           f"tester wall {wall / (len(sizes) or 1):.3f} s per fragment "
           f"({len(sizes)} fragments)")
+    launches.update(knn_kernels)
     return launches
 
 
@@ -1050,6 +1121,7 @@ def run_training_slice(work):
     else:
         raise SmokeFailure("no batch size fits the card's memory")
     launches = read_launches()
+    launches.update(read_knn_kernels())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"  tools/train_torch.py: batch size {batch_size} (shipped: 16), "
           f"{epochs} epochs x {iters} iterations, {wall:.1f} s, peak device "
@@ -1261,7 +1333,10 @@ def main() -> int:
 
     print("[3] kernels against their plain versions")
     rng = np.random.RandomState(SEED)
-    results = {"knn": check_knn(dev, rng), "fps": check_fps(dev, rng),
+    knn = check_knn(dev, rng)
+    results = {"knn_pruned": dict(knn["pruned"], max_abs_err=knn["max_abs_err"]),
+               "knn_brute": dict(knn["brute"], max_abs_err=knn["max_abs_err"]),
+               "fps": check_fps(dev, rng),
                "vector_attention": check_attention(dev, rng),
                "vector_attention_train": check_attention_train(dev, rng),
                "st_attention": check_st_attention(dev, rng),
@@ -1279,9 +1354,18 @@ def main() -> int:
         print("[8] Point Transformer V2 serving slice end to end")
         ptv2_serving = run_slice(work, PTV2_CONFIG, "ptv2", PTV2_PER_FORWARD)
 
+    main_runs = (launches, serving, st_serving, ptv2_serving)
+    for key in ("knn_pruned", "knn_brute"):
+        n = sum(run[key] for run in main_runs)
+        expect(n > 0, f"{key} kernel launched {n} times over the main-path runs")
+
     meta = {
-        "knn": ("K1 exact kNN", "pointcloudpdf_tpu_torch/csrc/knn.cu",
-                "pointcloudpdf_tpu/ops/pallas_knn.py:231"),
+        "knn_pruned": ("K1 exact kNN, bound-pruned (ref sets >= KNN_PRUNE_MIN_REFS)",
+                       "pointcloudpdf_tpu_torch/csrc/knn.cu",
+                       "pointcloudpdf_tpu/ops/pallas_knn.py:334"),
+        "knn_brute": ("K1 exact kNN, brute force (smaller ref sets)",
+                      "pointcloudpdf_tpu_torch/csrc/knn.cu",
+                      "pointcloudpdf_tpu/ops/pallas_knn.py:231"),
         "fps": ("K2 farthest point sampling", "pointcloudpdf_tpu_torch/csrc/fps.cu",
                 "pointcloudpdf_tpu/ops/pallas_fps.py:70"),
         "vector_attention": ("K3 vector attention (inference)",

@@ -46,6 +46,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # query, ref, ref_mask, B, M, N, k, idx, dist2, stream
     "pcpdf_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # xyz, mask (or NULL), B, N, part, keys, n_valid (or NULL), stream
+    "pcpdf_knn_codes": [_P, _P, _I, _I, _P, _P, _P, _P],
+    # ref, ref_mask, order, B, N, R, sorted, boxes, sub_boxes, stream
+    "pcpdf_knn_chunks": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # query, query_order, sorted, boxes, sub_boxes, n_valid, same, B, M, N,
+    # k, R, idx, dist2, visits (or NULL), stream
+    "pcpdf_knn_pruned": [_P] * 6 + [_I] * 6 + [_P] * 4,
     # xyz, mask, S, n, m, scratch, out, stream
     "pcpdf_fps": [_P, _P, _I, _I, _I, _P, _P, _P],
     # xq, xk, xv, coord, idx, nmask, params, B, N, C, K, out, stream

@@ -5,26 +5,37 @@ Counterpart of ``pointcloudpdf_tpu/ops/geometry.py`` (``knn`` with its
 exact contract, ``ball_query``, ``grouping``, ``interpolation``), batched over a leading
 sample axis instead of vmapped.  The TPU dispatch tiers of the JAX ``knn``
 (serialization windows, approximate top-k, split Pallas) are not ported:
-on the card one exact kernel serves every size.
+on the card two exact kernels serve every size.
 
 K1 (csrc/knn.cu) replaces ``knn_pallas`` / ``_knn_pallas_pruned``
-(pointcloudpdf_tpu/ops/pallas_knn.py); its source note says what bounds it
-on the card and how it is built.  ``knn_plain`` is its plain PyTorch
-version: the same squared distance ``(dx*dx + dy*dy) + dz*dz`` over
-element-wise ops, so on the card the two agree bit for bit in ``dist2``
-and in ``idx`` up to exact ties.
+(pointcloudpdf_tpu/ops/pallas_knn.py): a brute-force kernel for ref sets
+below ``KNN_PRUNE_MIN_REFS`` points and, at or above it, the bound-pruned
+kernel over the z-order plan of ``knn_plan``; the source note says what
+bounds each on the card.  ``knn_plain`` is their plain PyTorch version: the
+same squared distance ``(dx*dx + dy*dy) + dz*dz`` over element-wise ops, so
+on the card each agrees with it bit for bit in ``dist2`` and in ``idx`` up
+to exact ties.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _cuda
+from .serialization import morton_codes
 
-KNN_LAUNCHES = 0  # K1 launches since the last reset
+KNN_LAUNCHES = 0  # knn calls that launched K1 since the last reset
+KNN_PRUNED_LAUNCHES = 0  # of those, calls that took the bound-pruned kernel
+KNN_BRUTE_LAUNCHES = 0  # of those, calls that took the brute-force kernel
+# ref sets of at least this many points take the bound-pruned kernel, smaller
+# ones the brute-force kernel (PERF.md, the K1 rows, gives the times that set it)
+KNN_PRUNE_MIN_REFS = 8192
+KNN_TILE = 32  # sorted queries a tile of the pruned kernel: one warp
+_KNN_BOX_PARTS = 32  # csrc/knn.cu kBoxParts: blocks a sample in the box pass
 _PLAIN_TILE_ELEMS = 1 << 26  # knn_plain: largest (queries x refs) block
 
 
@@ -53,12 +64,13 @@ def knn(
         pad_d = torch.full((B, M, k - N), float("inf"), device=dist2.device)
         return torch.cat([idx, pad_idx], -1), torch.cat([dist2, pad_d], -1)
     if _cuda.use_kernel(query):
-        return _knn_cuda(query, ref, k, ref_mask)
+        if N >= KNN_PRUNE_MIN_REFS:
+            return knn_pruned_cuda(query, ref, k, ref_mask, query is ref)[:2]
+        return knn_brute_cuda(query, ref, k, ref_mask)
     return knn_plain(query, ref, k, ref_mask)
 
 
-def _knn_cuda(query, ref, k, ref_mask):
-    global KNN_LAUNCHES
+def _kernel_inputs(query, ref, k, ref_mask):
     if k > 64:
         raise ValueError(f"knn kernel takes k <= 64, got {k}")
     query = query.float().contiguous()
@@ -66,16 +78,224 @@ def _knn_cuda(query, ref, k, ref_mask):
     ref_mask = ref_mask.to(torch.bool).contiguous()
     _cuda.expect_cuda("knn", query, ref, ref_mask)
     B, M, _ = query.shape
-    N = ref.shape[1]
     idx = torch.empty((B, M, k), dtype=torch.int32, device=query.device)
     dist2 = torch.empty((B, M, k), dtype=torch.float32, device=query.device)
+    return query, ref, ref_mask, idx, dist2
+
+
+def knn_brute_cuda(query, ref, k, ref_mask):
+    """K1's brute-force kernel: every query against every ref."""
+    global KNN_LAUNCHES, KNN_BRUTE_LAUNCHES
+    query, ref, ref_mask, idx, dist2 = _kernel_inputs(query, ref, k, ref_mask)
+    B, M, _ = query.shape
     err = _cuda.library().pcpdf_knn(
-        query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), B, M, N, k,
-        idx.data_ptr(), dist2.data_ptr(),
-        ctypes.c_void_p(_cuda.stream_of(query)))
+        query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), B, M, ref.shape[1],
+        k, idx.data_ptr(), dist2.data_ptr(), ctypes.c_void_p(_cuda.stream_of(query)))
     _cuda.check(err, "pcpdf_knn")
     KNN_LAUNCHES += 1
+    KNN_BRUTE_LAUNCHES += 1
     return idx, dist2
+
+
+def knn_chunk(n_refs: int) -> int:
+    """Sorted refs a chunk of the pruned kernel for a ref set of ``n_refs``
+    points: finer chunks prune more, but each warp keeps one bound a chunk
+    in shared memory and rescans its share of them at every visit (PERF.md,
+    the K1 rows, gives the times that set these steps)."""
+    return 64 if n_refs <= 1 << 15 else 128 if n_refs <= 1 << 17 else 256
+
+
+def knn_pruned_cuda(query, ref, k, ref_mask, same=False, visits=False, chunk=None):
+    """K1's bound-pruned kernel over the plan of ``knn_plan`` (``same``: the
+    queries are the refs).  Returns (idx, dist2, visits): with ``visits``
+    an int32 (B, ceil(M / 32) + 1) count of the chunks each tile of
+    ``knn_tiles`` visited, else None.  ``chunk`` defaults to
+    ``knn_chunk(N)``."""
+    global KNN_LAUNCHES, KNN_PRUNED_LAUNCHES
+    query, ref, ref_mask, idx, dist2 = _kernel_inputs(query, ref, k, ref_mask)
+    B, M, _ = query.shape
+    chunk = chunk or knn_chunk(ref.shape[1])
+    plan = knn_plan(query, ref, ref_mask, same, chunk)
+    counts = (torch.zeros((B, -(-M // KNN_TILE) + 1), dtype=torch.int32,
+                          device=query.device) if visits else None)
+    err = _cuda.library().pcpdf_knn_pruned(
+        query.data_ptr(), plan.query_order.data_ptr(), plan.ref_sorted.data_ptr(),
+        plan.chunk_box.data_ptr(), plan.sub_box.data_ptr(), plan.n_valid.data_ptr(),
+        int(same), B, M, ref.shape[1], k, chunk, idx.data_ptr(), dist2.data_ptr(),
+        counts.data_ptr() if visits else None, ctypes.c_void_p(_cuda.stream_of(query)))
+    _cuda.check(err, "pcpdf_knn_pruned")
+    KNN_LAUNCHES += 1
+    KNN_PRUNED_LAUNCHES += 1
+    return idx, dist2, counts
+
+
+class KnnPlan(NamedTuple):
+    """What the bound-pruned kernel reads.  An order holds flat indices,
+    ``b * N + i`` for point i of sample b, as one sort over every sample
+    gives them."""
+
+    ref_order: torch.Tensor  # (B, N) int64: refs in morton order, masked last
+    query_order: torch.Tensor  # (B, M) int64: queries in morton order
+    ref_sorted: torch.Tensor  # (B, N, 4) f32: xyz, original index (int32 bits)
+    chunk_box: torch.Tensor  # (B, ceil(N / chunk), 6) f32: lo xyz, hi xyz
+    sub_box: torch.Tensor  # (B, ceil(N / chunk) * chunk / 32, 6): each run of 32
+    n_valid: torch.Tensor  # (B,) int32: valid refs
+
+
+def knn_plan(query, ref, ref_mask, same=False, chunk=None) -> KnnPlan:
+    """The bound-pruned kNN's plan: refs ordered by morton code (masked
+    last, ``serialization.morton_codes``), queries by their own code (the
+    refs' order when ``same``), the sorted refs with their original index,
+    and each chunk of ``chunk`` (default ``knn_chunk(N)``) sorted refs, and
+    each run of 32 of them, with the bounding box of its valid refs (+inf /
+    -inf when it has none).  Each order is one stable sort of
+    ``b << 32 | code`` over all samples.  On CUDA tensors the keys and the
+    chunks come from K1's prep kernels; elsewhere (or under
+    ``_cuda.plain_versions()``) from their plain versions, with the same
+    values.  Under the profiler its work is the range ``K1 prep``."""
+    query, ref = query.float().contiguous(), ref.float().contiguous()
+    ref_mask = ref_mask.to(torch.bool).contiguous()
+    B, N, _ = ref.shape
+    chunk = chunk or knn_chunk(N)
+    kernel = _cuda.use_kernel(ref)
+    # the range costs host time on every call, so only while profiling
+    scope = (torch.profiler.record_function("K1 prep")
+             if torch.autograd._profiler_enabled() else contextlib.nullcontext())
+    with scope:
+        stream = ctypes.c_void_p(_cuda.stream_of(ref)) if kernel else None
+        if kernel:
+            ref_keys, n_valid = _keys_cuda(ref, ref_mask, stream)
+        else:
+            ref_keys = _keys_plain(ref, ref_mask)
+            n_valid = ref_mask.sum(dim=1, dtype=torch.int32)
+        ref_order = torch.sort(ref_keys.view(-1), stable=True).indices.view(B, N)
+        if same:
+            query_order = ref_order
+        else:
+            query_keys = (_keys_cuda(query, None, stream)[0] if kernel else
+                          _keys_plain(query, torch.ones_like(query[..., 0], dtype=torch.bool)))
+            query_order = torch.sort(query_keys.view(-1), stable=True).indices.view(query.shape[:2])
+        if kernel:
+            ref_sorted, chunk_box, sub_box = _chunks_cuda(ref, ref_mask, ref_order, chunk, stream)
+        else:
+            ref_sorted, chunk_box, sub_box = _chunks_plain(ref, ref_mask, ref_order, chunk)
+    return KnnPlan(ref_order, query_order, ref_sorted, chunk_box, sub_box, n_valid)
+
+
+def _keys_plain(xyz, mask):
+    B = xyz.shape[0]
+    sample = torch.arange(B, dtype=torch.int64, device=xyz.device) << 32
+    return morton_codes(xyz, mask) | sample[:, None]
+
+
+def _keys_cuda(xyz, mask, stream):
+    B, N, _ = xyz.shape
+    part = torch.empty((B, _KNN_BOX_PARTS, 8), dtype=torch.float32, device=xyz.device)
+    keys = torch.empty((B, N), dtype=torch.int64, device=xyz.device)
+    n_valid = torch.empty((B,), dtype=torch.int32, device=xyz.device)
+    err = _cuda.library().pcpdf_knn_codes(
+        xyz.data_ptr(), None if mask is None else mask.data_ptr(), B, N,
+        part.data_ptr(), keys.data_ptr(), n_valid.data_ptr(), stream)
+    _cuda.check(err, "pcpdf_knn_codes")
+    return keys, n_valid
+
+
+def _chunks_cuda(ref, ref_mask, order, chunk, stream):
+    B, N, _ = ref.shape
+    n_chunks = -(-N // chunk)
+    ref_sorted = torch.empty((B, N, 4), dtype=torch.float32, device=ref.device)
+    chunk_box = torch.empty((B, n_chunks, 6), dtype=torch.float32, device=ref.device)
+    sub_box = torch.empty((B, n_chunks * chunk // KNN_TILE, 6), dtype=torch.float32,
+                          device=ref.device)
+    err = _cuda.library().pcpdf_knn_chunks(
+        ref.data_ptr(), ref_mask.data_ptr(), order.data_ptr(), B, N, chunk,
+        ref_sorted.data_ptr(), chunk_box.data_ptr(), sub_box.data_ptr(), stream)
+    _cuda.check(err, "pcpdf_knn_chunks")
+    return ref_sorted, chunk_box, sub_box
+
+
+def _chunks_plain(ref, ref_mask, order, chunk):
+    B, N, _ = ref.shape
+    perm = order - torch.arange(B, device=order.device)[:, None] * N
+    xyz = ref.float().gather(1, perm[..., None].expand(B, N, 3))
+    valid = ref_mask.to(torch.bool).gather(1, perm)[..., None]
+    index_bits = perm.to(torch.int32).view(torch.float32)[..., None]
+    ref_sorted = torch.cat([xyz, index_bits], dim=-1)
+    pad = -N % chunk
+    inf = torch.tensor(float("inf"), device=ref.device)
+    lo = torch.nn.functional.pad(torch.where(valid, xyz, inf), (0, 0, 0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(torch.where(valid, xyz, -inf), (0, 0, 0, pad), value=float("-inf"))
+    lo = lo.view(B, -1, KNN_TILE, 3).amin(dim=2)
+    hi = hi.view(B, -1, KNN_TILE, 3).amax(dim=2)
+    runs = chunk // KNN_TILE
+    chunk_box = torch.cat([lo.view(B, -1, runs, 3).amin(dim=2),
+                           hi.view(B, -1, runs, 3).amax(dim=2)], dim=-1)
+    return ref_sorted, chunk_box, torch.cat([lo, hi], dim=-1)
+
+
+def box_bound(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lower bound on ``dist2`` between any point of box ``a`` and any
+    point of box ``b`` (each (..., 6): lo xyz, hi xyz), with the kernel's
+    rounding: per axis ``gap = max(0, lo_a - hi_b, lo_b - hi_a)``, then
+    ``(gx*gx + gy*gy) + gz*gz`` in f32.  Rounding is monotone, so the bound
+    never exceeds the ``dist2`` of such a pair."""
+    gap = torch.clamp(torch.maximum(a[..., :3] - b[..., 3:], b[..., :3] - a[..., 3:]), min=0)
+    g2 = gap * gap
+    return (g2[..., 0] + g2[..., 1]) + g2[..., 2]
+
+
+def knn_tiles(M, n_valid, same):
+    """The pruned kernel's tiles of one sample: (start, end) ranges of its
+    sorted query positions, ceil(M / 32) + 1 of them (``tile_rows`` in
+    csrc/knn.cu).  With ``same`` the valid queries (the first ``n_valid``
+    of the refs' order) and the masked ones take tiles of their own; a
+    spare tile is empty."""
+    split = n_valid if same else M
+    head = -(-split // KNN_TILE)
+    rows = []
+    for t in range(-(-M // KNN_TILE) + 1):
+        p0 = t * KNN_TILE if t < head else split + (t - head) * KNN_TILE
+        rows.append((p0, max(p0, min(p0 + KNN_TILE, split if t < head else M))))
+    return rows
+
+
+def knn_deferred(sorted_query, tiles):
+    """(M,) bool over sorted positions: the queries the pruned kernel does
+    not search itself, because they equal every query back to the one
+    before their tile; the tile holding their run's start writes their
+    rows."""
+    M = sorted_query.shape[0]
+    eq = torch.zeros(M, dtype=torch.bool)
+    eq[1:] = (sorted_query[1:] == sorted_query[:-1]).all(-1)
+    deferred = torch.zeros(M, dtype=torch.bool)
+    for p0, p1 in tiles:
+        for p in range(p0, p1):
+            if not eq[p]:
+                break
+            deferred[p] = True
+    return deferred
+
+
+def knn_tile_bounds(query, plan: KnnPlan, same=False):
+    """What the pruned kernel forms in each warp, as plain tensors: the
+    deferred queries (B, M) over sorted positions (``knn_deferred``), the
+    box of every tile of ``knn_tiles`` over its other queries (B, tiles, 6;
+    +inf / -inf where it has none) and its bound to every chunk (B, tiles,
+    chunks).  Dense, so for small sets (tests)."""
+    B, M, _ = query.shape
+    q = query.float().reshape(B * M, 3)[plan.query_order]
+    boxes = torch.empty((B, -(-M // KNN_TILE) + 1, 6))
+    boxes[..., :3], boxes[..., 3:] = float("inf"), float("-inf")
+    deferred = torch.zeros((B, M), dtype=torch.bool)
+    for b in range(B):
+        tiles = knn_tiles(M, int(plan.n_valid[b]), same)
+        deferred[b] = knn_deferred(q[b], tiles)
+        for t, (p0, p1) in enumerate(tiles):
+            rows = q[b, p0:p1][~deferred[b, p0:p1]]
+            if len(rows):
+                boxes[b, t, :3] = rows.amin(0)
+                boxes[b, t, 3:] = rows.amax(0)
+    return deferred, boxes, box_bound(boxes[:, :, None], plan.chunk_box[:, None])
 
 
 def knn_plain(query, ref, k, ref_mask):

@@ -2,7 +2,8 @@
 
 Counterpart of ``pointcloudpdf_tpu/ops/serialization.py`` (morton_encode,
 morton_sort_indices), used by blocked FPS to cut a sample into spatially
-coherent windows.  PyTorch has no uint32 arithmetic, so the 30-bit codes
+coherent windows and by the bound-pruned kNN (K1) to cut it into compact
+chunks.  PyTorch has no uint32 arithmetic, so the 30-bit codes
 live in int64; the masked sentinel 0xFFFFFFFF still sorts after every
 code, and ``stable=True`` repeats ``jnp.argsort``'s order on equal codes.
 """
@@ -33,12 +34,14 @@ def morton_encode(grid_coord: torch.Tensor) -> torch.Tensor:
             | (_part1by2(g[..., 2]) << 2))
 
 
-def morton_sort_indices(coord: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Per-sample permutation sorting points by morton code, masked last.
+def morton_codes(coord: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-sample z-order codes, masked points at the sentinel 0xFFFFFFFF.
 
     coord (B, N, 3) float, mask (B, N) bool -> (B, N) int64.  The grid is
     the sample's valid bounding box quantised as ``(coord - cmin) *
-    (1023 / extent)`` in float32, exactly as the JAX package does.
+    (1023 / extent)`` in float32, exactly as the JAX package does (PyTorch
+    takes ``1023 / extent`` as ``reciprocal(extent) * 1023``; the kNN
+    kernel's prep in ``csrc/knn.cu`` repeats that rounding).
     """
     coord = coord.float()
     m3 = mask[..., None]
@@ -49,5 +52,10 @@ def morton_sort_indices(coord: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     scale = ((1 << MORTON_BITS) - 1) / extent
     g = torch.clamp((coord - cmin) * scale, 0, (1 << MORTON_BITS) - 1)
     code = morton_encode(g.to(torch.int32))
-    code = torch.where(mask, code, torch.full_like(code, _INVALID))
-    return torch.argsort(code, dim=-1, stable=True)
+    return torch.where(mask, code, torch.full_like(code, _INVALID))
+
+
+def morton_sort_indices(coord: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-sample permutation sorting points by morton code (``morton_codes``),
+    masked last: coord (B, N, 3) float, mask (B, N) bool -> (B, N) int64."""
+    return torch.argsort(morton_codes(coord, mask), dim=-1, stable=True)

@@ -79,6 +79,100 @@ def test_knn_kernel_masked_tail_and_k_above_n(dev):
     assert idx.shape == (3, 40, 8) and torch.isinf(d2[..., 5:]).all()
 
 
+def _assert_knn_matches_plain(q, r, k, m, idx, d2):
+    """dist2 bitwise equal to knn_plain's; indices equal but at exact ties,
+    where the kernel's index lies at the same distance."""
+    with _cuda.plain_versions():
+        pidx, pd2 = geometry.knn(q, r, k, m)
+    assert torch.equal(d2, pd2)
+    fin = torch.isfinite(d2)
+    diff = (idx != pidx) & fin
+    true_d2 = ((geometry.gather_rows(r, idx) - q[:, :, None]) ** 2).sum(-1)
+    assert torch.allclose(true_d2[diff], d2[diff], rtol=1e-6, atol=0)
+    assert (idx >= 0).all() and (idx < r.shape[1]).all()
+
+
+def _clustered_with_duplicates(seed, B, N, valid, dev):
+    """Room-scale clusters (chip_smoke's), every 8th point a copy of
+    another: duplicate coordinates, as voxel centres repeat."""
+    rng = np.random.RandomState(seed)
+    coord, mask = chip_smoke.clustered_cloud(rng, B, N, valid)
+    for b in range(B):
+        src = rng.randint(0, valid[b], size=valid[b] // 8)
+        coord[b, rng.randint(0, valid[b], size=len(src))] = coord[b, src]
+    return torch.from_numpy(coord).to(dev), torch.from_numpy(mask).to(dev)
+
+
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("k", [3, 16, 34, 64])
+def test_knn_pruned_kernel_matches_plain(dev, k, same):
+    """40,000 refs take the bound-pruned kernel: clustered, with duplicates
+    and a masked tail; self kNN and a cross kNN from a quarter of them with
+    a zero-padded tail."""
+    r, m = _clustered_with_duplicates(21, 2, 40000, [40000, 33000], dev)
+    q = r
+    if not same:
+        q = r[:, ::4].contiguous()
+        q[:, 9000:] = 0.0
+    before = geometry.KNN_PRUNED_LAUNCHES
+    idx, d2 = geometry.knn(q, r, k, m)
+    assert geometry.KNN_PRUNED_LAUNCHES == before + 1
+    _assert_knn_matches_plain(q, r, k, m, idx, d2)
+
+
+def test_knn_threshold_takes_each_kernel(dev):
+    """One ref set each side of KNN_PRUNE_MIN_REFS, each against the plain
+    version."""
+    n = geometry.KNN_PRUNE_MIN_REFS
+    for size, counter in ((n - 1, "KNN_BRUTE_LAUNCHES"), (n, "KNN_PRUNED_LAUNCHES")):
+        r, m = _clustered_with_duplicates(22, 2, size, [size, size - 500], dev)
+        before = getattr(geometry, counter)
+        idx, d2 = geometry.knn(r, r, 16, m)
+        assert getattr(geometry, counter) == before + 1
+        _assert_knn_matches_plain(r, r, 16, m, idx, d2)
+
+
+def test_knn_plan_kernels_match_plain(dev):
+    """The prep kernels (morton codes, sorted refs, chunk boxes) give the
+    plain plan's values exactly."""
+    r, m = _clustered_with_duplicates(23, 2, 20000, [20000, 15000], dev)
+    q = r[:, :7000].contiguous()
+    got = geometry.knn_plan(q, r, m, False)
+    with _cuda.plain_versions():
+        want = geometry.knn_plan(q, r, m, False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_knn_pruned_visits(dev):
+    """The visit counter: fewer chunks than there are on a clustered cloud
+    (tiles of valid queries), every chunk where no bound exceeds tau (all
+    refs at one point: each chunk may hold a tie that wins on index) and
+    where tau stays +inf (fewer valid refs than k)."""
+    n = 40000
+    r, m = _clustered_with_duplicates(24, 1, n, [n], dev)
+    idx, d2, visits = geometry.knn_pruned_cuda(r, r, 16, m, True, visits=True)
+    n_chunks = -(-n // geometry.knn_chunk(n))
+    assert visits.shape == (1, -(-n // geometry.KNN_TILE) + 1)
+    assert int(visits.max()) < n_chunks and float(visits.float().mean()) < 0.2 * n_chunks
+    _assert_knn_matches_plain(r, r, 16, m, idx, d2)
+
+    r = torch.full((1, n, 3), 0.5, device=dev)
+    q = torch.rand((1, 3000, 3), generator=torch.Generator().manual_seed(0)).to(dev)
+    m = torch.ones((1, n), dtype=torch.bool, device=dev)
+    idx, d2, visits = geometry.knn_pruned_cuda(q, r, 8, m, False, visits=True)
+    assert bool((visits[:, :-1] == n_chunks).all()) and int(visits[0, -1]) == 0  # a spare tile
+    assert torch.equal(idx, torch.arange(8, dtype=torch.int32, device=dev).expand(1, 3000, 8))
+    _assert_knn_matches_plain(q, r, 8, m, idx, d2)
+
+    r, m = _clustered_with_duplicates(25, 2, n, [n, 5], dev)
+    idx, d2, visits = geometry.knn_pruned_cuda(r, r, 8, m, True, visits=True)
+    # the 5 valid queries, then the zero tail of masked ones, searched once
+    # by the tile where that run starts
+    assert visits[1, :2].tolist() == [1, 1] and bool((visits[1, 2:] == 0).all())
+    _assert_knn_matches_plain(r, r, 8, m, idx, d2)
+
+
 @pytest.mark.parametrize("n,m", [(256, 64), (20000, 700)])
 def test_fps_kernel_matches_plain(dev, n, m):
     """Shared-memory sets (n <= 8192) and device-memory sets."""

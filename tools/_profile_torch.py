@@ -2,8 +2,8 @@
 one profiled call's device time by kind of kernel, the JSON record, and the
 whole profile of one serving forward through a tester.
 
-Used by ``tools/profile_train_torch.py``, ``tools/profile_st_torch.py`` and
-``tools/profile_ptv2_torch.py``.
+Used by ``tools/profile_train_torch.py``, ``tools/profile_ptv1_torch.py``,
+``tools/profile_st_torch.py`` and ``tools/profile_ptv2_torch.py``.
 """
 
 import json
@@ -12,8 +12,9 @@ import subprocess
 import time
 
 # a kernel's kind is the first whose keys its name holds
+K1 = "K1 kNN"
 KINDS = (
-    ("K1 kNN", ("knn_kernel",)),
+    (K1, ("knn_kernel", "knn_prep")),
     ("K2 FPS", ("fps_",)),
     ("K4 backward", ("attn_bwd_kernel",)),
     ("K5 window attention", ("st_attention_kernel",)),
@@ -34,6 +35,28 @@ def kind_of(name):
         if any(k in low for k in keys):
             return kind
     return "element-wise and other"
+
+
+def k1_prep_kernels(prof):
+    """{kernel name: [device us, launches]} of the PyTorch kernels launched
+    inside a ``K1 prep`` range (the sorts of the pruned kNN's plan): they
+    belong to K1, not to "sort"."""
+    import torch
+
+    moved = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        parent = ev.cpu_parent
+        while parent is not None and parent.name != "K1 prep":
+            parent = parent.cpu_parent
+        if parent is None:
+            continue
+        for kern in ev.kernels:
+            entry = moved.setdefault(kern.name, [0.0, 0])
+            entry[0] += kern.duration
+            entry[1] += 1
+    return moved
 
 
 def device_us(event):
@@ -62,17 +85,28 @@ def profile_call(fn, host_ms, what, top=24):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds, launches = {}, {}
+    # (a record_function range shows on the device's timeline too: not a kernel)
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
-               and device_us(ev) > 0]
+               and device_us(ev) > 0 and ev.key != "K1 prep"]
     for ev in kernels:
         k = kind_of(ev.key)
         kinds[k] = kinds.get(k, 0.0) + device_us(ev) / 1e3
         launches[k] = launches.get(k, 0) + ev.count
+    prep = k1_prep_kernels(prof)
+    for name, (us, n) in prep.items():
+        k = kind_of(name)
+        if k != K1:
+            kinds[k] -= us / 1e3
+            launches[k] -= n
+            kinds[K1] = kinds.get(K1, 0.0) + us / 1e3
+            launches[K1] = launches.get(K1, 0) + n
     busy = sum(kinds.values())
     print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms over "
           f"{sum(launches.values())} kernels, idle share {1 - busy / wall_ms:.3f} "
-          f"(profiled), {1 - busy / host_ms:.3f} against the unprofiled host clock")
+          f"(profiled), {1 - busy / host_ms:.3f} against the unprofiled host clock; "
+          f"K1 includes {sum(v[0] for v in prep.values()) / 1e3:.3f} ms of PyTorch "
+          f"kernels in its prep ({sum(v[1] for v in prep.values())} launches)")
     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {k:26s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%  "
               f"{launches[k]} launches")
@@ -84,6 +118,7 @@ def profile_call(fn, host_ms, what, top=24):
             "idle_share_profiled": 1 - busy / wall_ms,
             "idle_share_unprofiled": 1 - busy / host_ms,
             "by_kind_ms": kinds, "launches_by_kind": launches,
+            "k1_prep_torch_kernels": prep,
             "top_kernels": [{"ms": device_us(ev) / 1e3, "count": ev.count,
                              "name": ev.key[:120]} for ev in ranked]}
 
