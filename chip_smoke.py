@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero:
    the card could take for the same work (its bound); K1 at eight shapes,
    one of them a val-pass-sized set of 262,144 points, each with the share
    of the brute-force work that the bound-pruned kernel visited and, where
-   it runs, its plan (prep kernels) against the plain plan;
+   it runs, its plan (prep kernels) against the plain plan; K4 at five,
+   three stages at B = 2 and the train step's stages 4 and 5 at B = 16;
 4. the serving slice end to end: a seeded synthetic room in the S3DIS
    layout, seeded random Seg50 + PDF-recognizer weights written through
    the bridge as a JAX-layout checkpoint, ``tools/test_torch.py`` on the
@@ -85,8 +86,12 @@ TRAIN_AREAS = ("Area_1", "Area_2", "Area_3", "Area_4", "Area_6")
 # published peaks of one H100 SXM (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_SPLIT_FLOPS = 495e12 / 3  # split TF32 on the tensor cores: three TF32 products a product
 TOL_LOGITS = 1e-3   # relative to max |logit|, after 13 attention blocks
 TOL_SCORE = 1e-4
+# valid points of the smallest and the largest crop of the shipped training
+# batch (16 crops in the 81,920 bucket; chip_smoke.py phase 5's rooms)
+TRAIN_CROP = (58542, 69770)
 
 
 class SmokeFailure(RuntimeError):
@@ -137,12 +142,14 @@ def print_compiler_report(path):
                 print("  " + line.strip())
 
 
-def bound(n_bytes, n_flops):
+def bound(n_bytes, n_flops, t_ops=None):
     """The least time (ms) the card could take: the larger of the bytes
     moved once over the memory rate and the f32 operations over the
-    non-tensor f32 peak; and which of the two it is."""
+    non-tensor f32 peak (or ``t_ops``, the operations' least time where
+    some run on another unit); and which of the two it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS * 1e3
+    if t_ops is None:
+        t_ops = n_flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -434,16 +441,19 @@ def check_fps(dev, rng):
             "shape": f"blocked, B=2 x N={N}, m={N // 4}", "rows": rows}
 
 
-def attention_inputs(dev, rng, N, C, K, drop=0.0, grad=False):
-    """Inputs of the vector-attention entries at one stage's shape, B = 2:
-    a clustered cloud with a masked tail, its kNN table (``drop`` of the
-    valid slots masked too), random features, weights and affines."""
+def attention_inputs(dev, rng, N, C, K, drop=0.0, grad=False, valid=None):
+    """Inputs of the vector-attention entries at one stage's shape: a
+    clustered cloud with a masked tail (B = 2 and ``[N, N - N // 7]`` valid
+    points unless ``valid`` gives one count a sample), its kNN table
+    (``drop`` of the valid slots masked too), random features, weights and
+    affines."""
     import torch
 
     from pointcloudpdf_tpu_torch.ops import geometry
 
-    B, G = 2, C // 8
-    coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
+    valid = [N, N - N // 7] if valid is None else list(valid)
+    B, G = len(valid), C // 8
+    coord, mask = clustered_cloud(rng, B, N, valid)
     coord = torch.from_numpy(coord).to(dev)
     mask = torch.from_numpy(mask).to(dev)
     idx, d2 = geometry.knn(coord, coord, K, mask)
@@ -483,6 +493,23 @@ def attention_bound(B, N, C, K, pairs, backward):
                + n_params * 4 * (2 if backward else 1))
     chain = 2 * (9 + 3 * C + C * G + G * G) + 10 * C
     return n_bytes, chain * pairs * (3 if backward else 1)
+
+
+def attention_bwd_ops_ms(C, pairs):
+    """The least time (ms) of the backward's operations in
+    ``attention_bound``: its C x G and G x G products (2 (C G + G^2) flop a
+    pair and pass) at the split-TF32 rate of the tensor cores, where the
+    kernel runs them, overlapping the rest at the f32 peak."""
+    G = C // 8
+    products = 3 * 2 * (C * G + G * G) * pairs
+    rest = 3 * (2 * (9 + 3 * C) + 10 * C) * pairs
+    return max(products / TF32_SPLIT_FLOPS, rest / F32_FLOPS) * 1e3
+
+
+def train_stage_valid(crops, stage):
+    """Valid points a sample at a Seg50 stage (0-4) of a training batch of
+    ``crops``: each stage keeps a quarter of the points, rounded up."""
+    return [-(-int(v) // 4 ** stage) for v in crops]
 
 
 def check_attention(dev, rng):
@@ -571,20 +598,29 @@ def compare_attention_train(name, feats, coord, idx, nmask, params, dout):
 
 def check_attention_train(dev, rng):
     """K4 (training forward + backward) against the plain version's
-    autograd at three stages' shapes, ~5% of the neighbour slots and a tail
-    of rows masked."""
+    autograd at three stages' shapes, B = 2, ~5% of the neighbour slots and
+    a tail of rows masked; then at the train step's shapes of stages 4 and
+    5 (B = 16 crops, K = 16), from a seed of their own."""
     import torch
 
     from pointcloudpdf_tpu_torch.ops import _cuda
 
+    train_rng = np.random.RandomState(SEED + 7)
+    crops = train_rng.randint(TRAIN_CROP[0], TRAIN_CROP[1] + 1, size=16)
+    cases = [("stage-1 C=32 K=8", N_MAIN, 32, 8, None),
+             ("stage-4 C=256 K=16", N_MAIN // 64, 256, 16, None),
+             ("stage-5 C=512 K=16", N_MAIN // 256, 512, 16, None),
+             ("train stage-4 B=16 C=256 K=16", 1280, 256, 16, train_stage_valid(crops, 3)),
+             ("train stage-5 B=16 C=512 K=16", 320, 512, 16, train_stage_valid(crops, 4))]
     rows, worst = [], {"forward": 0.0, "x": 0.0, "param": 0.0}
-    for name, N, C, K in (("stage-1 C=32 K=8", N_MAIN, 32, 8),
-                          ("stage-4 C=256 K=16", N_MAIN // 64, 256, 16),
-                          ("stage-5 C=512 K=16", N_MAIN // 256, 512, 16)):
+    for name, N, C, K, valid in cases:
+        r = rng if valid is None else train_rng
         feats, coord, idx, nmask, params = attention_inputs(
-            dev, rng, N, C, K, drop=0.05, grad=True)
+            dev, r, N, C, K, drop=0.05 if valid is None else 0.0, grad=True,
+            valid=valid)
+        B = len(feats[0])
         dout = torch.from_numpy(
-            rng.standard_normal((2, N, C)).astype(np.float32)).to(dev)
+            r.standard_normal((B, N, C)).astype(np.float32)).to(dev)
         errs, run, cleared = compare_attention_train(
             name, feats, coord, idx, nmask, params, dout)
         worst = {k: max(v, errs[k]) for k, v in worst.items()}
@@ -592,13 +628,15 @@ def check_attention_train(dev, rng):
         with _cuda.plain_versions():
             plain_ms = cuda_ms(run, 2)
         pairs = float(cleared.sum())
-        fb, ff = attention_bound(2, N, C, K, pairs, False)
-        bb, bf = attention_bound(2, N, C, K, pairs, True)
-        bound_ms, bound_by = bound(fb + bb, ff + bf)
-        rows.append((name, ms, plain_ms, bound_ms, bound_by))
+        fb, ff = attention_bound(B, N, C, K, pairs, False)
+        bb, bf = attention_bound(B, N, C, K, pairs, True)
+        t_ops = ff / F32_FLOPS * 1e3 + attention_bwd_ops_ms(C, pairs)
+        bound_ms, bound_by = bound(fb + bb, ff + bf, t_ops)
+        peak = "backward products at 495/3 TFLOP/s, the rest at 67"
+        rows.append((name, ms, plain_ms, bound_ms, bound_by, peak))
         print(f"  K4 {name} forward+backward: kernels {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}: {fb + bb:.3e} bytes, "
-              f"{ff + bf:.3e} flop)")
+              f"{ff + bf:.3e} flop; {peak})")
     print(f"  K4 worst rel err: forward {worst['forward']:.3e}, d x {worst['x']:.3e}, "
           f"d params {worst['param']:.3e}")
     return {"max_abs_err": max(worst.values()), "ms": rows[0][1],

@@ -41,7 +41,7 @@ from .geometry import gather_rows
 ATTENTION_LAUNCHES = 0
 ATTENTION_TRAIN_LAUNCHES = 0
 ATTENTION_BWD_LAUNCHES = 0
-MAX_NEIGHBOURS_BWD = 16     # the backward kernel keeps K logits per lane
+MAX_NEIGHBOURS_BWD = 16     # the backward kernel takes K <= 16
 _WIDTHS = (32, 64, 128, 256, 512)
 
 

@@ -290,9 +290,14 @@ def _assert_train_close(got, want):
 
 
 @pytest.mark.parametrize("c", [32, 64, 128, 256, 512])
-@pytest.mark.parametrize("k", [8, 16])
+@pytest.mark.parametrize("k", [5, 8, 16])
 def test_attention_train_kernel_matches_plain(dev, c, k):
-    case = _off_kinks(_train_case(dev, c, k, seed=c + k))
+    """Every width and K in {5, 8, 16} over three samples of 1,499 rows
+    (one with a masked tail): many tiles of whole queries, and a last tile
+    that is partial at every tile size (B * N = 4,497 is no multiple of
+    any tile's count of queries, 2 to 25)."""
+    case = _off_kinks(_train_case(dev, c, k, seed=c + k, n=1499,
+                                  valid=(1499, 900, 1499)))
     k3, fwd, bwd = (va.ATTENTION_LAUNCHES, va.ATTENTION_TRAIN_LAUNCHES,
                     va.ATTENTION_BWD_LAUNCHES)
     got = _train_run(*case)
