@@ -14,6 +14,9 @@ Phases, in order; any failure exits non-zero:
    of the brute-force work that the bound-pruned kernel visited and, where
    it runs, its plan (prep kernels) against the plain plan; K4 at five,
    three stages at B = 2 and the train step's stages 4 and 5 at B = 16;
+   K7 at seven, every width the shipped PT-v2m2 configs launch and two
+   probes of the other branch combinations, none of its instantiations
+   spilling registers;
 4. the serving slice end to end: a seeded synthetic room in the S3DIS
    layout, seeded random Seg50 + PDF-recognizer weights written through
    the bridge as a JAX-layout checkpoint, ``tools/test_torch.py`` on the
@@ -120,10 +123,11 @@ def cuda_ms(fn, iters):
 
 def print_compiler_report(path):
     """Registers, shared memory and spills of every kernel, from the
-    ``nvcc -Xptxas -v`` report kept beside the library."""
+    ``nvcc -Xptxas -v`` report kept beside the library; returns
+    ``{kernel<args>: (registers, spill store bytes, spill load bytes)}``."""
     import re
 
-    entry, spills = "?", ""
+    entry, spills, report = "?", "", {}
     with open(path) as f:
         for line in f:
             found = re.search(r"Compiling entry function '(\w+)'", line)
@@ -132,14 +136,18 @@ def print_compiler_report(path):
                 # and its template arguments as Li<n>E
                 names = re.findall(r"\d([a-z][a-z_]*[a-z])", found.group(1))
                 entry = max(names, key=len) if names else found.group(1)[:48]
-                args = re.findall(r"Li(\d+)E", found.group(1))
+                args = re.findall(r"L[ib](\d+)E", found.group(1))
                 entry += f"<{', '.join(args)}>" if args else ""
             elif "spill stores" in line:
                 spills = line.strip()
             elif "Used" in line and "registers" in line:
                 print(f"  {entry}: {line.strip().replace('ptxas info    : ', '')}; {spills}")
+                regs = re.search(r"Used (\d+) registers", line)
+                spill = [int(x) for x in re.findall(r"(\d+) bytes spill", spills)] or [0, 0]
+                report[entry] = (int(regs.group(1)) if regs else -1, *spill[:2])
             elif "error" in line:
                 print("  " + line.strip())
+    return report
 
 
 def bound(n_bytes, n_flops, t_ops=None):
@@ -845,6 +853,34 @@ def gva_bound(B, N, C, G, S, pairs, branches):
     return n_bytes, pairs * per_pair
 
 
+def gva_ops_ms(C, pairs, branches):
+    """The least time (ms) of ``gva_bound``'s operations with the products
+    where K7 runs them: the 2 C^2 of each positional encoding that is on and
+    the weight encoding's 2 C G at the split-TF32 rate of the tensor cores,
+    overlapping the rest at the f32 peak."""
+    G = C // 8
+    products = (branches * 2 * C * C + 2 * C * G) * pairs
+    rest = (branches * (6 * C + 4 * C) + 2 * G * G + 4 * G + 6 * C + 5 * G) * pairs
+    return max(products / TF32_SPLIT_FLOPS, rest / F32_FLOPS) * 1e3
+
+
+# K7's phase-3 shapes (N, C, (pe_multiplier, pe_bias)), B = 2: the S3DIS
+# PT-v2m2 path's four widths (patch embedding and decoder 1 at C = 48,
+# stage 1 and decoder 2 at 96, stage 2 and decoder 3 at 192, stage 3 at 384)
+# and the ScanNet PT-v2m2 config's fourth stage (C = 512), pe_bias as
+# PT-v2m2; then two probes of the other branch combinations
+GVA_CASES = ((65536, 48, (False, True)), (16384, 96, (False, True)),
+             (16384, 192, (False, True)), (8192, 384, (False, True)),
+             (2048, 512, (False, True)), (16384, 96, (True, False)),
+             (16384, 96, (True, True)))
+
+
+def gva_case_name(N, C, pe, S):
+    branch = {(False, True): "pe_bias", (True, False): "pe_multiplier",
+              (True, True): "both"}[pe]
+    return f"C={C} G={C // 8} N={N} S={S} {branch}"
+
+
 def gva_inputs(dev, rng, N, C, pe, S=16):
     """Inputs of the grouped vector attention at one stage's shape, B = 2: a
     clustered cloud with a masked tail (query-invalid rows), its kNN table
@@ -873,23 +909,29 @@ def gva_inputs(dev, rng, N, C, pe, S=16):
             attn.weight_encoding, C // 8), mask
 
 
-def check_gva(dev, rng):
-    """K7 against ``gva_plain`` at the PT-v2 S3DIS path's shapes (pe_bias,
-    as PT-v2m2) and two probes of the other branch combinations."""
+def check_gva(dev, rng, compiled):
+    """K7 against ``gva_plain`` at ``GVA_CASES``, each row with its
+    launches in a PT-v2m2 S3DIS forward (``PTV2_K7_BY_WIDTH``, which phase
+    8 asserts), its bound (products at the split-TF32 rate) and its
+    instantiation's registers and spills (``compiled``: the compiler
+    report); no instantiation may spill."""
     import torch
 
     from pointcloudpdf_tpu_torch.ops import _cuda
     from pointcloudpdf_tpu_torch.ops import gva
 
+    for width in gva._WIDTHS:
+        for mul in (0, 1):  # the multiplier encoding off / on
+            name = f"gva_kernel<{width}, {mul}>"
+            regs, spill_st, spill_ld = compiled.get(name, (-1, -1, -1))
+            expect(regs > 0 and spill_st == 0 and spill_ld == 0,
+                   f"{name}: {regs} registers, {spill_st} / {spill_ld} bytes "
+                   "spilled (stores / loads)")
     rows, worst = [], 0.0
-    for N, C, pe in ((65536, 48, (False, True)), (16384, 192, (False, True)),
-                     (8192, 384, (False, True)), (16384, 96, (True, False)),
-                     (16384, 96, (True, True))):
+    for N, C, pe in GVA_CASES:
         args, mask = gva_inputs(dev, rng, N, C, pe)
         B, G, S = 2, C // 8, args[4].shape[-1]
-        branch = {(False, True): "pe_bias", (True, False): "pe_multiplier",
-                  (True, True): "both"}[pe]
-        name = f"C={C} G={G} N={N} S={S} {branch}"
+        name = gva_case_name(N, C, pe, S)
 
         def run():
             return gva.grouped_vector_attention(*args)
@@ -910,11 +952,14 @@ def check_gva(dev, rng):
                 plain_ms = cuda_ms(run, 2)
         pairs = float(args[5].sum())
         n_bytes, n_flops = gva_bound(B, N, C, G, S, pairs, pe[0] + pe[1])
-        bound_ms, bound_by = bound(n_bytes, n_flops)
-        rows.append((name, ms, plain_ms, bound_ms, bound_by))
+        bound_ms, bound_by = bound(n_bytes, n_flops, gva_ops_ms(C, pairs, pe[0] + pe[1]))
+        launches = PTV2_K7_BY_WIDTH.get(C, 0) if pe == (False, True) else 0
+        regs = compiled[f"gva_kernel<{C}, {int(pe[0])}>"][0]
+        rows.append((name, ms, plain_ms, bound_ms, bound_by, launches, regs))
         print(f"  K7 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} bytes, {n_flops:.3e} "
-              f"flop over {pairs:.3e} valid pairs)")
+              f"flop over {pairs:.3e} valid pairs; products at 495/3 TFLOP/s); "
+              f"{launches} launches a PT-v2m2 S3DIS forward; {regs} registers, no spill")
     return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
             "bound_ms": rows[0][3], "bound_by": rows[0][4],
             "shape": "patch embedding, B=2 x N=65536, C=48, G=6, S=16, pe_bias; "
@@ -935,6 +980,7 @@ def reset_launches():
     va.ATTENTION_BWD_LAUNCHES = 0
     st_attention.ST_ATTENTION_LAUNCHES = kpconv.KPCONV_LAUNCHES = 0
     gva.GVA_LAUNCHES = 0
+    gva.GVA_LAUNCHES_BY_WIDTH.clear()
 
 
 def read_launches():
@@ -946,7 +992,8 @@ def read_launches():
             "vector_attention_train": (va.ATTENTION_TRAIN_LAUNCHES,
                                        va.ATTENTION_BWD_LAUNCHES),
             "st_attention": st_attention.ST_ATTENTION_LAUNCHES,
-            "kpconv": kpconv.KPCONV_LAUNCHES, "gva": gva.GVA_LAUNCHES}
+            "kpconv": kpconv.KPCONV_LAUNCHES, "gva": gva.GVA_LAUNCHES,
+            "gva_by_width": dict(gva.GVA_LAUNCHES_BY_WIDTH)}
 
 
 def read_knn_kernels():
@@ -980,12 +1027,13 @@ def run_tool(tool, argv):
     return "\n".join(lines)
 
 
-def run_slice(work, config, name, per_forward=None):
+def run_slice(work, config, name, per_forward=None, gva_by_width=None):
     """A serving slice end to end on ``config``: the tester over the
     synthetic room with the launch counts read, then one fragment again on
     the plain versions.  ``per_forward`` gives the launches of one forward
     where the modules fix them (the Stratified Transformer's, PT-v2's); a
-    kernel it leaves out must not launch.  An open-set config
+    kernel it leaves out must not launch; ``gva_by_width`` gives K7's by
+    width.  An open-set config
     (``OpenSegTester``) also writes and checks the scores and the AUPR
     line; a closed-set one (``SemSegTester``) has neither."""
     import torch
@@ -1023,6 +1071,7 @@ def run_slice(work, config, name, per_forward=None):
     wall = time.perf_counter() - t0
     launches = read_launches()
     knn_kernels = read_knn_kernels()
+    by_width = launches.pop("gva_by_width")
     forwards = log.count(", Batch: ")
     print(f"  tools/test_torch.py ({tester_type}): {wall:.3f} s, {forwards} forwards; "
           f"launches {launches}")
@@ -1052,6 +1101,9 @@ def run_slice(work, config, name, per_forward=None):
             want = per_forward.get(key, 0) * forwards
             expect(n == want, f"{key} kernel launched {n} times = "
                               f"{per_forward.get(key, 0)} a forward x {forwards} forwards")
+        want = {c: n * forwards for c, n in (gva_by_width or {}).items()}
+        expect(by_width == want, f"K7 launched {by_width} times by width = "
+                                 f"{gva_by_width or {}} a forward x {forwards} forwards")
 
     # one fragment again, kernels against plain versions
     from pointcloudpdf_tpu_torch.engines.test import TESTERS
@@ -1112,6 +1164,9 @@ ST_PER_FORWARD = {"st_attention": 10, "kpconv": 2, "knn": 1 + 3 + 6 + 3 + 3,
 # (the patch level and three pooled ones; a level's table serves its encoder
 # and decoder blocks)
 PTV2_PER_FORWARD = {"gva": 2 + (2 + 6 + 2) + (1 + 1 + 1), "knn": 4}
+# ... K7's by width: patch embedding 2 + decoder 1 at 48, stage 1 2 + decoder 1
+# at 96, stage 2 6 + decoder 1 at 192, stage 3 2 at 384
+PTV2_K7_BY_WIDTH = {48: 2 + 1, 96: 2 + 1, 192: 6 + 1, 384: 2}
 
 
 def run_training_slice(work):
@@ -1367,7 +1422,7 @@ def main() -> int:
     so = _cuda.build()
     _cuda.library()
     print(f"  built {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.1f} s")
-    print_compiler_report(so[:-3] + ".log")
+    compiled = print_compiler_report(so[:-3] + ".log")
 
     print("[3] kernels against their plain versions")
     rng = np.random.RandomState(SEED)
@@ -1378,7 +1433,7 @@ def main() -> int:
                "vector_attention": check_attention(dev, rng),
                "vector_attention_train": check_attention_train(dev, rng),
                "st_attention": check_st_attention(dev, rng),
-               "kpconv": check_kpconv(dev, rng), "gva": check_gva(dev, rng)}
+               "kpconv": check_kpconv(dev, rng), "gva": check_gva(dev, rng, compiled)}
 
     with tempfile.TemporaryDirectory() as work:
         print("[4] serving slice end to end")
@@ -1390,7 +1445,8 @@ def main() -> int:
         print("[7] Stratified Transformer serving slice end to end")
         st_serving = run_slice(work, ST_CONFIG, "st", ST_PER_FORWARD)
         print("[8] Point Transformer V2 serving slice end to end")
-        ptv2_serving = run_slice(work, PTV2_CONFIG, "ptv2", PTV2_PER_FORWARD)
+        ptv2_serving = run_slice(work, PTV2_CONFIG, "ptv2", PTV2_PER_FORWARD,
+                                 PTV2_K7_BY_WIDTH)
 
     main_runs = (launches, serving, st_serving, ptv2_serving)
     for key in ("knn_pruned", "knn_brute"):

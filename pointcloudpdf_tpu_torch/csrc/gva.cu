@@ -14,26 +14,70 @@
 // out 0.
 //
 // Bound on the card: operations.  Each positional encoding that is on costs
-// a C x C product for every (query, neighbour) pair, 2 C^2 flop, against
-// ~16 C bytes a query; at C = 384 that is 295k flop a pair.  Design: one
-// warp per query, lane l owning channels l + 32 r; a warp takes T neighbour
-// slots at a time, writes their hidden layer (3 -> C, ReLU) into its own
-// staging rows of shared memory and runs the C x C product over the T pairs
-// at once, so each weight it reads serves T pairs (lane l reads column
-// l + 32 r of a row, neighbouring lanes neighbouring words; the hidden values
-// are broadcast reads).  The weights sit in shared memory for the block
-// where they fit (C x C in f32: 9 KB at C = 48, 147 KB at 192) and are read
-// through L1/L2 where they do not (590 KB at C = 384): that case is slow.
-// The weight encoding reduces C -> G over the warp with a butterfly; the
-// softmax over S runs online, so a lane keeps three floats a channel.  The
-// k/v/coord rows are gathered by index inside the kernel (no payload slab,
-// no bf16), and every sum is in f32.
+// a C x C product for every (query, neighbour) pair, 2 C^2 flop (86% of the
+// work at C = 384), and the weight encoding a C x G one, 2 C G flop, against
+// ~16 C bytes a query.  Both products run on the tensor cores, as the TPU
+// kernel runs them on its MXU over a tile of pair rows:
+//
+// - A persistent block (8 warps) takes tiles of TQ whole queries x SS slots,
+//   P pair rows (masked slots, slots past S and rows past the last query are
+//   rows with j = -1), so each query's softmax closes inside the tile.  S
+//   need not divide P (SS = min(S, P), TQ = P / SS rows in use); where S > P
+//   a query's slots come in row chunks of P, merged by an online softmax
+//   whose running sum lives in shared memory and running value in out.
+// - Y = H W2 over C in chunks of NC output channels.  W2 comes split into
+//   TF32 (hi, lo) pairs by the wrapper's packing (once a module) and
+//   streams through shared memory in k-slabs of 16 x NC (cp.async, three
+//   buffers, one barrier a slab).  A warp takes 16 rows x WN n-tiles.  The
+//   hidden layer H = relu((p W1 + b1) s + t) never goes to shared memory:
+//   each warp makes its A fragments in registers from its two rows' p and
+//   the layer's weights with the BatchNorm folded in (4 floats a channel,
+//   resident), since shared memory's bandwidth, not the tensor cores,
+//   bounded the products when H was staged there (a split fragment is
+//   twice the bytes of an f32 one).  Products are mma.sync m16n8k8 in
+//   split TF32 (as K4's backward, common.cuh: integer hi/lo splits, lo
+//   rounded, each k-step's three products summed from 0 and added to an
+//   f32 sum on the CUDA cores), which keeps f32 accuracy where one-pass
+//   TF32 (10-bit mantissas) does not.
+// - The weight encoding in the same pass: as a chunk of Y is finished, its
+//   accumulators become rel = (k[j] - q_i) pem + peb in registers, and since
+//   an mma's accumulator fragment, read with the k index permuted (k slot
+//   t <-> column 2t, t + 4 <-> 2t + 1), is the A fragment of the next
+//   product, rel W_e1 (the chunk's rows of W_e1, staged in shared memory)
+//   accumulates straight into the warp's a fragments.  v[j] is gathered
+//   beside k[j] and q_i, and v_eff = v[j] + peb goes to shared memory.  No
+//   (B, N, S, C) intermediate goes to device memory.  The G -> G layer, the
+//   masked softmax over each query's slots and out[c] = sum softmax * v_eff
+//   close the tile on the CUDA cores, from shared memory.
+//
+// W2 a tile reads from L2, per encoding that is on: C^2 x 8 bytes (hi and
+// lo), i.e. 18 KB at C = 48 and 74 KB at 96 (P = 128 rows: 144 / 576 bytes
+// a row), 295 KB at 192, 1.2 MB at 384 and 2.1 MB at 512 (P = 64: 4.6 / 18
+// / 33 KB a row).  A row's split-TF32 products cost 6 C^2 flop, so a
+// tile does 0.75 P flop for each byte of W2, 48 at P = 64: at the rate this
+// kernel reaches that is ~2 TB/s from L2, and P = 32 would double it.
+// P = 128 would halve it, but v_eff for the tile (P x C f32) is 98 KB at
+// C = 384 and 130 KB at 512 with P = 64: twice that does not fit beside the
+// slabs.  At C <= 192 two blocks share an SM (128 registers a thread; the
+// multiplier's variants, which no shipped config uses, one); at C = 192
+// one block of P = 128 was 8% faster at N = 16,384 but 10% slower on the
+// PT-v2m2 forward's smaller sets, where fewer warps hide less latency.
+// What bounds it now, measured on the card: at C >= 192 the slab loop,
+// which issues ~4.6 instructions for each mma (the H fragments, the B
+// fragments' loads and the f32 sums of the split products) with a barrier
+// every two k-steps; at C <= 96 the per-tile phases (rows, softmax,
+// aggregation), which wait on memory and barriers.
+// Every sum is in f32 and the inputs are f32 (no bf16 payload).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+using pcpdf::mma_tf32;
+using pcpdf::split_tf32;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
 // offsets into the packed small-parameter buffer (floats)
 struct GvaLayout {
@@ -64,212 +108,497 @@ __host__ __device__ constexpr GvaLayout gva_layout(int C, int G) {
   return l;
 }
 
-// neighbour slots a warp takes at once (its accumulators: T x ceil(C / 32))
+// The shape of one width's tile and its shared memory, in floats
 template <int C>
-__host__ __device__ constexpr int chunk() {
-  return C <= 96 ? 8 : C <= 384 ? 4 : 2;
+struct Tile {
+  static constexpr int G = C / 8;
+  static constexpr int GP = (G + 7) / 8 * 8;   // groups, padded to mma's n
+  static constexpr int NT = GP / 8;            // n-tiles of the weight encoding
+  static constexpr int P = C <= 96 ? 128 : 64;   // pair rows a tile
+  static constexpr int MT = P / 16;              // m-tiles: a warp takes one
+  static constexpr int WC = kWarps / MT;         // warps sharing an m-tile
+  static constexpr int WN = C == 48 ? 6 : C == 384 ? 8 : 4;  // n-tiles a warp, a chunk
+  static constexpr int NC = 8 * WN * WC;         // channels a chunk
+  static constexpr int NCH = C / NC;             // chunks
+  static constexpr int KS = 16;                  // k rows a slab of W2
+  static constexpr int KSL = C / KS;             // slabs a chunk and branch
+  static constexpr int TQMAX = P / 8;            // queries a tile, at most
+  // row strides: conflict-free fragment reads and writes
+  static constexpr int WS = 2 * NC + 8;  // W2 slab: (hi, lo) pairs
+  static constexpr int ES = NC + 8;      // W_e1 chunk: a group a row
+  static constexpr int LS = GP + 1;      // a, then the logits / weights
+  static constexpr int PS = C + 8;       // v_eff
+  static constexpr int kW = KS * WS;     // three buffers
+  static constexpr int kE = GP * ES;     // two buffers
+  static constexpr int kA = P * LS;      // a and the logits, then W_e2,
+                                         // in the buffers above
+  static constexpr int kStats = TQMAX * GP;
+  static constexpr int kVe = P * PS;
+  static constexpr int kFloats =
+      3 * kW + 2 * kE + 8 * C + 3 * kStats + 4 * P + 2 * P + kVe;
+  static constexpr size_t kBytes = (size_t)kFloats * 4;
+  // two blocks an SM (128 registers a thread), or one
+  static constexpr int kMinBlocks = C <= 192 ? 2 : 1;
+  static_assert(C % NC == 0 && C % KS == 0 && NC % 4 == 0, "widths of the tile");
+  static_assert(MT * WC == kWarps, "a warp an m-tile and column group");
+  static_assert(kBytes <= 232448, "shared memory of one block");
+  static_assert(kMinBlocks == 1 || 2 * (kBytes + 1024) <= 233472, "two blocks an SM");
+  static_assert(3 * kW + 2 * kE >= 2 * kA + G * G, "a, logits and W_e2 in the slabs");
+  static_assert(gva_layout(C, G).e1t % 4 == 0, "W_e1 rows 16-byte aligned");
+};
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
-// One positional encoding over a chunk of T pairs: the hidden layer of this
-// lane's channels into the warp's staging rows, then y = hidden W2 + b2 on
-// this lane's channels.  w2 is (C, C) [in][out], in shared or device memory.
-template <int C>
-__device__ __forceinline__ void pe_chunk(const float* w1, const float* b1,
-                                         const float* s1, const float* t1,
-                                         const float* w2, const float* b2,
-                                         float (&rp)[chunk<C>()][3],
-                                         float* hid, int lane,
-                                         float (&y)[chunk<C>()][(C + 31) / 32]) {
-  constexpr int T = chunk<C>(), R = (C + 31) / 32;
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = lane + 32 * r;
-      if (c < C) {
-        const float h = b1[c] + rp[t][0] * w1[c] + rp[t][1] * w1[C + c] +
-                        rp[t][2] * w1[2 * C + c];
-        hid[t * C + c] = fmaxf(h * s1[c] + t1[c], 0.f);
-      }
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = lane + 32 * r;
-      y[t][r] = c < C ? b2[c] : 0.f;
-    }
-  }
-#pragma unroll 2
-  for (int i = 0; i < C; ++i) {
-    float w[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = lane + 32 * r;
-      w[r] = c < C ? w2[i * C + c] : 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < T; ++t) {
-      const float h = hid[t * C + i];
-#pragma unroll
-      for (int r = 0; r < R; ++r) y[t][r] = fmaf(h, w[r], y[t][r]);
-    }
-  }
-  __syncwarp();  // the staging rows are written again by the next chunk
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+               : "memory");
 }
 
-template <int C>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// t = a b in split TF32, summed from 0; acc += t, rounded to nearest
+__device__ __forceinline__ void mma_split(float (&acc)[4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  const float kZero[4] = {0.f, 0.f, 0.f, 0.f};
+  float t[4];
+  mma_tf32(t, al, bh, kZero);
+  mma_tf32(t, ah, bl, t);
+  mma_tf32(t, ah, bh, t);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// kMul: the multiplier encoding is on (its accumulators exist, and take the
+// registers of a second block); the bias encoding's switch is pe_bias
+template <int C, bool kMul>
+__global__ void __launch_bounds__(kThreads, kMul ? 1 : Tile<C>::kMinBlocks)
 gva_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ coord,
            const int* __restrict__ idx, const uint8_t* __restrict__ nmask,
            const float* __restrict__ params, const float* __restrict__ pm2,
-           const float* __restrict__ pb2, int pe_mul, int pe_bias,
-           int e1t_resident, int w2_resident, int B, int N, int S,
-           float* __restrict__ out) {
-  constexpr int G = C / 8, R = (C + 31) / 32, T = chunk<C>();
+           const float* __restrict__ pb2, int pe_bias, int B, int N, int S,
+           int SS, int TQ, float* __restrict__ out) {
+  using T = Tile<C>;
+  constexpr int G = T::G, NT = T::NT, P = T::P, MT = T::MT, WN = T::WN,
+                NC = T::NC, NCH = T::NCH, KS = T::KS, KSL = T::KSL,
+                WS = T::WS, ES = T::ES, LS = T::LS, PS = T::PS;
   constexpr GvaLayout L = gva_layout(C, G);
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  extern __shared__ __align__(16) float smem[];
+  float* sW = smem;                    // 3 x [KS][WS] W2 slabs, split
+  float* sE = smem + 3 * T::kW;        // 2 x [GP][ES] W_e1 of a chunk,
+                                       //   transposed
+  float* sA = smem;                    // after the chunks, in the above: a,
+  float* sL = smem + T::kA;            //   the logits / softmax weights
+  float* sE2 = smem + 2 * T::kA;       //   and W_e2
+  float4* sHp = reinterpret_cast<float4*>(sE + 2 * T::kE);  // [2][C]: the
+                                       //   hidden layers' (W1 s, b1 s + t)
+  float* sMax = reinterpret_cast<float*>(sHp + 2 * C);  // [TQ][G] running max
+  float* sSum = sMax + T::kStats;      //   ... sum
+  float* sScale = sSum + T::kStats;    //   ... factor of the earlier rows
+  float4* sRp = reinterpret_cast<float4*>(sScale + T::kStats);  // [P] p
+  int* sJ = reinterpret_cast<int*>(sRp + P);  // [P] row j, -1: no pair
+  int* sNext = sJ + P;  // [P] the next row chunk's kNN indices
+  float* sVe = reinterpret_cast<float*>(sNext + P);  // [P][PS] v_eff = v[j] + peb
 
-  // block-resident parameters: the small ones always, W_e1 and the C x C
-  // matrices where they fit; then each warp's staging rows
-  for (int i = threadIdx.x; i < L.head; i += blockDim.x) smem[i] = params[i];
-  int at = L.head;
-  const float* e1t = params + L.e1t;
-  if (e1t_resident) {
-    for (int i = threadIdx.x; i < G * C; i += blockDim.x)
-      smem[at + i] = params[L.e1t + i];
-    e1t = smem + at;
-    at += G * C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int mt = warp % MT, wc = warp / MT;  // this warp's m-tile, n-tiles
+  // each encoding's first layer with its BatchNorm folded in: h = relu(b' +
+  // p W1'), W1' = W1 s, b' = b1 s + t (the multiplier's at [0, C), the
+  // bias's at [C, 2 C); zeros for a branch that is off)
+  for (int i = tid; i < 2 * C; i += kThreads) {
+    const int c = i % C, o = i < C ? L.m1w : L.b1w;
+    const float sc = params[o + 4 * C + c];
+    sHp[i] = make_float4(params[o + c] * sc, params[o + C + c] * sc,
+                         params[o + 2 * C + c] * sc,
+                         params[o + 3 * C + c] * sc + params[o + 5 * C + c]);
   }
-  const float* wm = pm2;
-  const float* wb = pb2;
-  if (w2_resident) {
-    if (pe_mul) {
-      for (int i = threadIdx.x; i < C * C; i += blockDim.x) smem[at + i] = pm2[i];
-      wm = smem + at;
-      at += C * C;
-    }
-    if (pe_bias) {
-      for (int i = threadIdx.x; i < C * C; i += blockDim.x) smem[at + i] = pb2[i];
-      wb = smem + at;
-      at += C * C;
-    }
-  }
-  float* hid = smem + at + warp * (1 + pe_mul) * T * C;
-  float* pem = hid + T * C;  // the multiplier of a chunk, with pe_mul
-  const float* p = smem;
-  __syncthreads();
 
+  const int per_chunk = ((int)kMul + pe_bias) * KSL;  // slabs a chunk
+  const int total = NCH * per_chunk;                  // slabs a row chunk
+  const int M = B * N;  // B N S and B N C < 2^31 (the launch checks)
+  const int tiles = (M + TQ - 1) / TQ;
+
+  // slab t of a row chunk (its chunk, branch and k-slab): W2's rows, split,
+  // into buffer t % 3
+  auto issue_w2 = [&](int t) {
+    if (t >= total) return;
+    const int chunk = t / per_chunk, r = t % per_chunk;
+    const float* w2 = kMul && r < KSL ? pm2 : pb2;
+    const int k0 = (r % KSL) * KS;
+    float* dst = sW + (t % 3) * T::kW;
+    for (int e = tid; e < KS * NC / 2; e += kThreads) {
+      const int kr = e / (NC / 2), n4 = 4 * (e % (NC / 2));
+      cp_async16(dst + kr * WS + n4,
+                 w2 + (long long)(k0 + kr) * 2 * C + chunk * 2 * NC + n4);
+    }
+  };
+  // W_e1's rows of a chunk, transposed ([g][channel]), into buffer chunk % 2
+  // (rows G to GP - 1, the padding to mma's n, feed only columns of ea that
+  // are never read)
+  auto issue_e1 = [&](int chunk) {
+    if (chunk >= NCH) return;
+    float* dst = sE + (chunk & 1) * T::kE;
+    for (int e = tid; e < G * (NC / 4); e += kThreads) {
+      const int g = e / (NC / 4), n4 = 4 * (e % (NC / 4));
+      cp_async16(dst + g * ES + n4, params + L.e1t + g * C + chunk * NC + n4);
+    }
+  };
+  // acc += H (this warp's 16 rows) . W2 slab (KS x this warp's WN n-tiles),
+  // H's A fragments made in registers from the rows' p (rp0: row gid, rp1:
+  // gid + 8; read again at each k-step where two blocks share the SM's
+  // registers) and the branch's folded first layer hp at channels k0 + ...
+  constexpr bool kLean = T::kMinBlocks == 2;
+  float3 rp0, rp1;
+  auto load_rp = [&] {
+    const float4 a = sRp[16 * mt + gid], b = sRp[16 * mt + gid + 8];
+    rp0 = make_float3(a.x, a.y, a.z);
+    rp1 = make_float3(b.x, b.y, b.z);
+  };
+  auto slab_mma = [&](const float4* hp, int k0, const float* w, float (&acc)[WN][4]) {
+#pragma unroll(kLean ? 1 : KS / 8)
+    for (int ks = 0; ks < KS / 8; ++ks) {
+      if (kLean) load_rp();
+      const int c0 = 8 * ks + tig;
+      const float4 pa = hp[k0 + c0], pb = hp[k0 + c0 + 4];
+      const float a[4] = {
+          fmaxf(pa.w + rp0.x * pa.x + rp0.y * pa.y + rp0.z * pa.z, 0.f),
+          fmaxf(pa.w + rp1.x * pa.x + rp1.y * pa.y + rp1.z * pa.z, 0.f),
+          fmaxf(pb.w + rp0.x * pb.x + rp0.y * pb.y + rp0.z * pb.z, 0.f),
+          fmaxf(pb.w + rp1.x * pb.x + rp1.y * pb.y + rp1.z * pb.z, 0.f)};
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const int n = 8 * (wc * WN + j) + gid;
+        const float2 b0 = ld2(w + c0 * WS + 2 * n);
+        const float2 b1 = ld2(w + (c0 + 4) * WS + 2 * n);
+        const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
+        const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
+        mma_split(acc[j], ah, al, bh, bl);
+      }
+    }
+  };
+
+  // the kNN index of this thread's row (tid < P) of a row chunk, copied
+  // one row chunk ahead into sNext
+  auto fetch = [&](int tile, int s0) {
+    const int qi = tid / SS, s = s0 + tid % SS, m = tile * TQ + qi;
+    if (tid < P && tile < tiles && qi < TQ && m < M && s < S)
+      cp_async4(sNext + tid, idx + m * S + s);
+    cp_async_commit();
+  };
+  fetch(blockIdx.x, 0);
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = tile * TQ;
+    for (int s0 = 0; s0 < S; s0 += SS) {
+      __syncthreads();  // the last row chunk is done with every buffer
+      int my_j = -1;
+      cp_async_wait<0>();  // this thread's sNext
+      if (tid < P) {
+        // the mask and the coordinates (of a row clamped into the sample)
+        // loaded together
+        const int qi = tid / SS, s = s0 + tid % SS, m = m0 + qi;
+        const bool in = qi < TQ && m < M && s < S;
+        const int mm = in ? m : 0, j = (mm / N) * N + min(max(sNext[tid], 0), N - 1);
+        const uint8_t mask = nmask[in ? m * S + s : 0];
+        const bool on = in && mask;
+        const float4 rp = make_float4(coord[j * 3] - coord[mm * 3],
+                                      coord[j * 3 + 1] - coord[mm * 3 + 1],
+                                      coord[j * 3 + 2] - coord[mm * 3 + 2], 0.f);
+        my_j = on ? j : -1;
+        sJ[tid] = my_j;
+        sRp[tid] = on ? rp : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (s0 + SS < S)
+        fetch(tile, s0 + SS);
+      else
+        fetch(tile + gridDim.x, 0);
+      if (s0 == 0) {
+        for (int e = tid; e < TQ * G; e += kThreads) {
+          sMax[e] = -INFINITY;
+          sSum[e] = 0.f;
+        }
+      }
+      if (__syncthreads_or(my_j >= 0)) {
+        // the weight encoding's first layer, accumulated over the chunks:
+        // this warp's 16 rows x GP groups (a partial over its WN n-tiles)
+        float ea[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ea[n][e] = 0.f;
+        // one cp.async group a slab: group t holds slab t's W2; group 0 also
+        // chunk 0's W_e1, and the group issued at chunk c's first slab chunk
+        // c + 1's (waited two slabs later, in use at chunk c + 1's end)
+        issue_w2(0);
+        issue_e1(0);
+        cp_async_commit();
+        issue_w2(1);
+        cp_async_commit();
+        if (!kLean) load_rp();
+        for (int chunk = 0; chunk < NCH; ++chunk) {
+          float accm[kMul ? WN : 1][4], accb[WN][4];
+#pragma unroll
+          for (int j = 0; j < WN; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              accb[j][e] = 0.f;
+              if (kMul) accm[j][e] = 0.f;
+            }
+          for (int r = 0; r < per_chunk; ++r) {
+            const int t = chunk * per_chunk + r;
+            cp_async_wait<1>();  // slab t's group (the newest is t + 1's)
+            // slab t's W2 visible to all; every warp is done with slab t - 1
+            // and with the last chunk's W_e1
+            __syncthreads();
+            issue_w2(t + 2);
+            if (r == 0) issue_e1(chunk + 1);
+            cp_async_commit();
+            const float* w = sW + (t % 3) * T::kW;
+            const int k0 = (r % KSL) * KS;
+            if constexpr (kMul) {
+              if (r < KSL)
+                slab_mma(sHp, k0, w, accm);
+              else
+                slab_mma(sHp + C, k0, w, accb);
+            } else {
+              slab_mma(sHp + C, k0, w, accb);
+            }
+          }
+          if (per_chunk == 0) {  // no positional encoding: W_e1 alone
+            if (chunk > 0) {
+              __syncthreads();
+              issue_e1(chunk);
+              cp_async_commit();
+            }
+            cp_async_wait<0>();
+            __syncthreads();
+          }
+          // the chunk's Y is done: rel and v_eff, and rel W_e1 into ea
+          {
+            const float* e1 = sE + (chunk & 1) * T::kE;
+            int jr[2];
+            int mr[2];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = 16 * mt + gid + 8 * h;
+              jr[h] = sJ[row];
+              mr[h] = m0 + row / SS;
+            }
+            // the gathers of JB n-tiles first, from row 0 for a row without
+            // a pair, so that their latencies overlap (as many as the
+            // registers hold)
+            constexpr int JB = T::kMinBlocks == 2 ? 1 : kMul ? WN / 4 : WN / 2;
+#pragma unroll
+            for (int j0 = 0; j0 < WN; j0 += JB) {
+              float2 kv[JB][2], qv[JB][2], vv[JB][2];
+#pragma unroll
+              for (int jb = 0; jb < JB; ++jb)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int c = chunk * NC + 8 * (wc * WN + j0 + jb) + 2 * tig;
+                  const bool on = jr[h] >= 0;
+                  const long long j = on ? (long long)jr[h] : 0ll;
+                  kv[jb][h] = ld2(k + j * C + c);
+                  vv[jb][h] = ld2(v + j * C + c);
+                  qv[jb][h] = ld2(q + (on ? (long long)mr[h] : 0ll) * C + c);
+                }
+#pragma unroll
+              for (int jb = 0; jb < JB; ++jb) {
+                const int j = j0 + jb;
+                const int cl = 8 * (wc * WN + j) + 2 * tig, c = chunk * NC + cl;
+                float rel[4];
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int row = 16 * mt + gid + 8 * h;
+                  const bool on = jr[h] >= 0;
+                  float x[2] = {kv[jb][h].x - qv[jb][h].x, kv[jb][h].y - qv[jb][h].y};
+                  float pb[2];
+#pragma unroll
+                  for (int d = 0; d < 2; ++d) {
+                    if constexpr (kMul) x[d] *= accm[j][2 * h + d] + params[L.m2b + c + d];
+                    pb[d] = accb[j][2 * h + d] + params[L.b2b + c + d];
+                    if (pe_bias) x[d] += pb[d];
+                    rel[2 * h + d] = on ? x[d] : 0.f;
+                  }
+                  *reinterpret_cast<float2*>(sVe + row * PS + c) =
+                      pe_bias ? make_float2(vv[jb][h].x + pb[0], vv[jb][h].y + pb[1])
+                              : vv[jb][h];
+                }
+                // the accumulator fragment as an A fragment, k permuted
+                uint32_t ah[4], al[4];
+                split_tf32(rel[0], ah[0], al[0]);
+                split_tf32(rel[2], ah[1], al[1]);
+                split_tf32(rel[1], ah[2], al[2]);
+                split_tf32(rel[3], ah[3], al[3]);
+#pragma unroll
+                for (int n = 0; n < NT; ++n) {
+                  const float2 b = ld2(e1 + (8 * n + gid) * ES + cl);
+                  uint32_t bh[2], bl[2];
+                  split_tf32(b.x, bh[0], bl[0]);
+                  split_tf32(b.y, bh[1], bl[1]);
+                  mma_split(ea[n], ah, al, bh, bl);
+                }
+              }
+            }
+          }
+        }
+        __syncthreads();  // every warp is done with the slabs and W_e1
+
+        // a = relu((rel W_e1 + b_e1) s_e + t_e), the warps' partials summed;
+        // W_e2 beside it
+        for (int i = tid; i < G * G; i += kThreads) sE2[i] = params[L.e2w + i];
+        auto store_a = [&](bool finish) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = 16 * mt + gid + 8 * (e >> 1), g = 8 * n + 2 * tig + (e & 1);
+              if (g < G) {
+                float* a = sA + row * LS + g;
+                if (!finish)
+                  *a = ea[n][e];
+                else
+                  *a = fmaxf((ea[n][e] + (T::WC > 1 ? *a : 0.f) + params[L.e1b + g]) *
+                                 params[L.es + g] + params[L.et + g], 0.f);
+              }
+            }
+        };
+        if (T::WC > 1) {
+          if (wc == 1) store_a(false);
+          __syncthreads();
+          if (wc == 0) store_a(true);
+        } else {
+          store_a(true);
+        }
+        __syncthreads();  // a and W_e2 ready
+      }
+
+      // the logits l = a W_e2 + b_e2 of the rows that hold a pair, and the
+      // masked softmax of each (query, group) over this row chunk's slots,
+      // merged into the running max and sum: KP lanes (SS rounded up to a
+      // power of 2, at most 32) a (query, group); sL takes exp(l - max)
+      int KP = 1;
+      while (KP < SS && KP < 32) KP <<= 1;
+      for (int e0 = 0; e0 < TQ * G * KP; e0 += kThreads) {
+        const int e = e0 + tid, sub = e % KP, qg = e / KP;
+        const bool on = e < TQ * G * KP;
+        const int qi = qg / G, g = qg % G;
+        float mx = -INFINITY;
+        for (int si = sub; on && si < SS; si += KP) {
+          const int p = qi * SS + si;
+          if (sJ[p] >= 0) {
+            const float* a = sA + p * LS;
+            float part[4] = {params[L.e2b + g], 0.f, 0.f, 0.f};  // 4 chains
+#pragma unroll
+            for (int h = 0; h < G; ++h) part[h % 4] += a[h] * sE2[h * G + g];
+            const float l = (part[0] + part[1]) + (part[2] + part[3]);
+            sL[p * LS + g] = l;
+            mx = fmaxf(mx, l);
+          }
+        }
+        for (int off = 1; off < KP; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float run = on ? sMax[qg] : -INFINITY, nm = fmaxf(run, mx);
+        const float scale = nm == -INFINITY ? 1.f : expf(run - nm);
+        float sum = 0.f;
+        for (int si = sub; on && si < SS; si += KP) {
+          const int p = qi * SS + si;
+          const float x = sJ[p] >= 0 ? expf(sL[p * LS + g] - nm) : 0.f;
+          sL[p * LS + g] = x;
+          sum += x;
+        }
+        for (int off = 1; off < KP; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (on && sub == 0) {
+          sMax[qg] = nm;
+          sSum[qg] = sSum[qg] * scale + sum;
+          sScale[qg] = scale;
+        }
+      }
+      __syncthreads();
+      // out[c] = sum over the slots of w[c / 8] v_eff[c]: the running value
+      // in out, divided by the sum after the last row chunk
+      const bool last = s0 + SS >= S;
+      for (int e = tid; e < TQ * C; e += kThreads) {
+        const int qi = e / C, c = e % C, g = c / 8;
+        const int m = m0 + qi;
+        if (m >= M) continue;
+        // (a slot without a pair has weight 0); two chains of sums
+        auto term = [&](int si) {
+          const int p = qi * SS + si;
+          return sJ[p] >= 0 ? sL[p * LS + g] * sVe[p * PS + c] : 0.f;
+        };
+        float acc0 = s0 == 0 ? 0.f : out[m * C + c] * sScale[qi * G + g], acc1 = 0.f;
+        int si = 0;
+#pragma unroll 8
+        for (; si + 1 < SS; si += 2) {
+          acc0 += term(si);
+          acc1 += term(si + 1);
+        }
+        if (si < SS) acc0 += term(si);
+        float sum = acc0 + acc1;
+        if (last) {
+          const float den = sSum[qi * G + g];
+          sum = den > 0.f ? sum / den : 0.f;
+        }
+        out[m * C + c] = sum;
+      }
+    }
+  }
+}
+
+template <int C, bool kMul>
+int launch_with(const float* q, const float* k, const float* v,
+                const float* coord, const int* idx, const uint8_t* nmask,
+                const float* params, const float* pm2, const float* pb2,
+                int pe_bias, int B, int N, int S, float* out,
+                cudaStream_t stream) {
+  using T = Tile<C>;
   const long long M = (long long)B * N;
-  for (long long m = (long long)blockIdx.x * kWarps + warp; m < M;
-       m += (long long)gridDim.x * kWarps) {
-    const long long base = (m / N) * N;
-    float qv[R], run_max[R], run_sum[R], acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = lane + 32 * r;
-      qv[r] = c < C ? q[m * C + c] : 0.f;
-      run_max[r] = -INFINITY;
-      run_sum[r] = 0.f;
-      acc[r] = 0.f;
-    }
-    const float cq[3] = {coord[m * 3 + 0], coord[m * 3 + 1], coord[m * 3 + 2]};
-
-    for (int s0 = 0; s0 < S; s0 += T) {
-      long long row[T];
-      bool ok[T];
-      float rp[T][3];
-      bool any = false;
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const int s = s0 + t;
-        ok[t] = s < S && nmask[m * S + s];
-        any |= ok[t];
-        row[t] = base + (ok[t] ? idx[m * S + s] : 0);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) rp[t][a] = coord[row[t] * 3 + a] - cq[a];
-      }
-      if (!any) continue;  // warp-uniform
-
-      float pe[T][R];
-      if (pe_mul) {
-        pe_chunk<C>(p + L.m1w, p + L.m1b, p + L.ms, p + L.mt, wm, p + L.m2b, rp,
-                    hid, lane, pe);
-#pragma unroll
-        for (int t = 0; t < T; ++t)
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (lane + 32 * r < C) pem[t * C + lane + 32 * r] = pe[t][r];
-      }
-      if (pe_bias)
-        pe_chunk<C>(p + L.b1w, p + L.b1b, p + L.bs, p + L.bt, wb, p + L.b2b, rp,
-                    hid, lane, pe);
-
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        if (!ok[t]) continue;  // warp-uniform
-        float rel[R], ve[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int c = lane + 32 * r;
-          rel[r] = ve[r] = 0.f;
-          if (c < C) {
-            float x = k[row[t] * C + c] - qv[r];
-            if (pe_mul) x *= pem[t * C + c];
-            const float b = pe_bias ? pe[t][r] : 0.f;
-            rel[r] = x + b;
-            ve[r] = v[row[t] * C + c] + b;
-          }
-        }
-        // weight encoding, layer 1 (C -> G): lane partials, then a
-        // butterfly all-reduce so that every lane holds all G sums
-        float a[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float s = 0.f;
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (lane + 32 * r < C) s += rel[r] * e1t[g * C + lane + 32 * r];
-          a[g] = s;
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            a[g] += __shfl_xor_sync(0xffffffffu, a[g], off);
-          a[g] = fmaxf((a[g] + p[L.e1b + g]) * p[L.es + g] + p[L.et + g], 0.f);
-        }
-        // layer 2 (G -> G) for the group of each of this lane's channels,
-        // then the online softmax over the slots
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int c = lane + 32 * r;
-          if (c < C) {
-            const int g = c / 8;
-            float logit = p[L.e2b + g];
-#pragma unroll
-            for (int h = 0; h < G; ++h) logit += a[h] * p[L.e2w + h * G + g];
-            const float new_max = fmaxf(run_max[r], logit);
-            const float keep = expf(run_max[r] - new_max);
-            const float e = expf(logit - new_max);
-            run_sum[r] = run_sum[r] * keep + e;
-            acc[r] = acc[r] * keep + e * ve[r];
-            run_max[r] = new_max;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int c = lane + 32 * r;
-      if (c < C) out[m * C + c] = run_sum[r] > 0.f ? acc[r] / run_sum[r] : 0.f;
-    }
-  }
+  if (S == 0)
+    return (int)cudaMemsetAsync(out, 0, (size_t)M * C * sizeof(float), stream);
+  const int SS = S < T::P ? S : T::P;
+  const int TQ = T::P / SS < T::TQMAX ? T::P / SS : T::TQMAX;
+  auto kernel = gva_kernel<C, kMul>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kBytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, T::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  // persistent blocks over the tiles of TQ queries
+  const long long tiles = (M + TQ - 1) / TQ;
+  const long long resident = (long long)per_sm * sms;
+  const int grid = (int)(tiles < resident ? tiles : resident);
+  kernel<<<grid, kThreads, T::kBytes, stream>>>(
+      q, k, v, coord, idx, nmask, params, pm2, pb2, pe_bias, B, N, S, SS, TQ, out);
+  return (int)cudaGetLastError();
 }
 
 template <int C>
@@ -277,59 +606,29 @@ int launch(const float* q, const float* k, const float* v, const float* coord,
            const int* idx, const uint8_t* nmask, const float* params,
            const float* pm2, const float* pb2, int pe_mul, int pe_bias, int B,
            int N, int S, float* out, cudaStream_t stream) {
-  constexpr int G = C / 8, T = chunk<C>();
-  constexpr GvaLayout L = gva_layout(C, G);
-  int dev = 0, budget = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  // what lives in shared memory: the small parameters and the staging rows
-  // always; W_e1 and the C x C matrices where they fit beside them
-  const size_t f = sizeof(float);
-  const size_t head = (size_t)L.head * f, e1t = (size_t)G * C * f;
-  const size_t w2 = (size_t)(pe_mul + pe_bias) * C * C * f;
-  const size_t stage = (size_t)kWarps * (1 + pe_mul) * T * C * f;
-  const int w2_resident = head + e1t + w2 + stage <= (size_t)budget;
-  const int e1t_resident =
-      head + e1t + (w2_resident ? w2 : 0) + stage <= (size_t)budget;
-  const size_t smem =
-      head + (e1t_resident ? e1t : 0) + (w2_resident ? w2 : 0) + stage;
-  if (smem > (size_t)budget) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(gva_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gva_kernel<C>,
-                                                        kWarps * 32, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // a persistent grid: each block loads the weights once
-  const long long M = (long long)B * N;
-  const long long blocks = (M + kWarps - 1) / kWarps;
-  const long long cap = (long long)per_sm * sms;
-  const int grid = (int)(blocks < cap ? blocks : cap);
-  gva_kernel<C><<<grid, kWarps * 32, smem, stream>>>(
-      q, k, v, coord, idx, nmask, params, pm2, pb2, pe_mul, pe_bias,
-      e1t_resident, w2_resident, B, N, S, out);
-  return (int)cudaGetLastError();
+  return pe_mul ? launch_with<C, true>(q, k, v, coord, idx, nmask, params, pm2, pb2,
+                                       pe_bias, B, N, S, out, stream)
+                : launch_with<C, false>(q, k, v, coord, idx, nmask, params, pm2, pb2,
+                                        pe_bias, B, N, S, out, stream);
 }
 
 }  // namespace
 
 // q/k/v (B, N, C) f32, coord (B, N, 3) f32, idx (B, N, S) i32 rows of the
 // same sample, nmask (B, N, S) u8, params packed as gva_layout(C, C / 8),
-// pm2/pb2 (C, C) [in][out] (read only for a branch that is on) -> out
-// (B, N, C) f32.  8 channels a group, C in {48, 96, 192, 384, 512}.
+// pm2/pb2 (C, 2 C): the (C, C) [in][out] matrices split into TF32 (hi, lo)
+// pairs, hi = x rounded to TF32 and lo = x - hi rounded to TF32 (read only
+// for a branch that is on) -> out (B, N, C) f32.  8 channels a group, C in
+// {48, 96, 192, 384, 512}.
 extern "C" int pcpdf_gva(const void* q, const void* k, const void* v,
                          const void* coord, const void* idx, const void* nmask,
                          const void* params, const void* pm2, const void* pb2,
                          int pe_mul, int pe_bias, int B, int N, int C, int S,
                          void* out, void* stream) {
   if ((long long)B * N == 0) return 0;
-  if (S < 0) return (int)cudaErrorInvalidValue;
+  // the kernel's indices are 32-bit
+  if (S < 0 || (long long)B * N * (S > C ? S : C) >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
 #define PCPDF_GVA_LAUNCH(W)                                                   \
   case W:                                                                     \
     return launch<W>(                                                         \

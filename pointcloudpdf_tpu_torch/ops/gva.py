@@ -22,11 +22,12 @@ comes out 0.  The MLPs are passed as those ``nn.Sequential`` modules
 a branch that is off.
 
 K7 (csrc/gva.cu) gathers the k/v/coord rows by index inside the kernel and
-computes both positional-encoding Linears, the C x C one included, in its
-own body, in f32.  The TPU kernel's gathered ``[k | v | coord_hi | coord_lo
-| flag]`` slab, its bf16 payload and its one-hot group-selector matmul
-dodge that chip's gather cost and are not ported.  The inference
-BatchNorms fold to affines from their running statistics.
+runs the positional encodings' C x C products and the weight encoding's
+C x G one over tiles of pair rows on the tensor cores, in split TF32 (f32
+accuracy).  The TPU kernel's gathered ``[k | v | coord_hi | coord_lo |
+flag]`` slab, its bf16 payload and its one-hot group-selector matmul dodge
+that chip's gather cost and are not ported.  The inference BatchNorms fold
+to affines from their running statistics.
 
 The kernel is inference-only, as in the JAX package:
 ``GroupedVectorAttention`` takes ``gva_plain`` (batch statistics,
@@ -36,6 +37,7 @@ launches the kernel, and raises when a gradient is asked of it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -45,6 +47,7 @@ from . import _cuda
 from .geometry import gather_rows
 
 GVA_LAUNCHES = 0          # K7 launches since the last reset
+GVA_LAUNCHES_BY_WIDTH: dict = {}  # ... by C
 SHARE = 8                 # channels per weight group the kernel takes
 _WIDTHS = (48, 96, 192, 384, 512)  # csrc/gva.cu
 
@@ -91,6 +94,12 @@ def gva_plain(q, k, v, coord, idx, nmask, pe_multiplier, pe_bias,
     return out.sum(dim=2).reshape(B, N, C)
 
 
+def _expect_eval(*mlps):
+    if any(m is not None and m[1].training for m in mlps):
+        raise ValueError("grouped vector attention kernel folds BatchNorm "
+                         "running statistics: call it on modules in eval mode")
+
+
 def _folded(seq, shape, device):
     """(W1 (in, out), b1, BN scale, BN shift, W2 (out, out), b2) of an MLP in
     eval mode, the BatchNorm folded from its running statistics; zeros of
@@ -100,20 +109,31 @@ def _folded(seq, shape, device):
         z = torch.zeros(c, device=device)
         return (torch.zeros(c_in, c, device=device), z, z, z,
                 torch.zeros(c, c, device=device), z)
+    _expect_eval(seq)
     lin1, norm, _, lin2 = seq
-    if norm.training:
-        raise ValueError("grouped vector attention kernel folds BatchNorm "
-                         "running statistics: call it on modules in eval mode")
     scale, shift = norm.norm.affine()
     return (lin1.weight.t(), lin1.bias, scale, shift, lin2.weight.t(),
             lin2.bias)
+
+
+def split_tf32(x):
+    """(..., n) float32 -> (..., 2 n): each value as the pair (hi, lo), hi = x
+    rounded to TF32 (10 mantissa bits, to nearest, ties away from zero, on
+    its bits) and lo = x - hi rounded the same way, as csrc/gva.cu's
+    split-TF32 products read them."""
+    def tf32(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float()
+    hi = tf32(x)
+    return torch.stack([hi, tf32(x - hi)], -1).reshape(*x.shape[:-1], 2 * x.shape[-1])
 
 
 def pack_params(pe_multiplier, pe_bias, weight_encoding, C: int, G: int):
     """The kernel's buffers: the small parameters packed in the layout of
     csrc/gva.cu ``gva_layout`` (the weight encoding's first matrix last,
     transposed to (G, C)), and the two positional encodings' C x C matrices
-    (in, out)."""
+    (in, out) split into (hi, lo) pairs, (C, 2 C)."""
     dev = weight_encoding[0].weight.device
     m1w, m1b, ms, mt, m2w, m2b = _folded(pe_multiplier, (3, C), dev)
     b1w, b1b, bs, bt, b2w, b2b = _folded(pe_bias, (3, C), dev)
@@ -121,7 +141,28 @@ def pack_params(pe_multiplier, pe_bias, weight_encoding, C: int, G: int):
     parts = [m1w, m1b, ms, mt, m2b, b1w, b1b, bs, bt, b2b,
              e1b, es, et, e2w, e2b, e1w.t()]
     small = torch.cat([p.float().reshape(-1) for p in parts])
-    return small.contiguous(), m2w.float().contiguous(), b2w.float().contiguous()
+    return small.contiguous(), split_tf32(m2w), split_tf32(b2w)
+
+
+def packed_params(pe_multiplier, pe_bias, weight_encoding, C: int, G: int):
+    """``pack_params`` once a set of eval modules: kept on
+    ``weight_encoding`` and made again when a parameter or running statistic
+    of the three MLPs changes its storage or its version counter (a copy,
+    an optimizer step, a ``load_state_dict``; a write through ``.data``
+    goes unseen).  Modules made under ``torch.inference_mode`` have no
+    version counters: they are packed at every call."""
+    mlps = [m for m in (pe_multiplier, pe_bias, weight_encoding) if m is not None]
+    _expect_eval(*mlps)
+    tensors = [t for m in mlps for t in (*m.parameters(), *m.buffers())]
+    if any(t.is_inference() for t in tensors):
+        return pack_params(pe_multiplier, pe_bias, weight_encoding, C, G)
+    key = (C, G, pe_multiplier is not None, pe_bias is not None,
+           tuple((t.data_ptr(), t._version) for t in tensors))
+    cached = getattr(weight_encoding, "_gva_packed", None)
+    if cached is None or cached[0] != key:
+        cached = (key, pack_params(pe_multiplier, pe_bias, weight_encoding, C, G))
+        weight_encoding._gva_packed = cached
+    return cached[1]
 
 
 def _gva_cuda(q, k, v, coord, idx, nmask, pe_multiplier, pe_bias,
@@ -138,9 +179,12 @@ def _gva_cuda(q, k, v, coord, idx, nmask, pe_multiplier, pe_bias,
     if C not in _WIDTHS or C != SHARE * groups:
         raise ValueError(f"grouped vector attention kernel takes C in {_WIDTHS} "
                          f"and {SHARE} channels a group, got C {C}, {groups} groups")
-    with torch.no_grad():
-        small, m2w, b2w = pack_params(pe_multiplier, pe_bias, weight_encoding,
-                                      C, groups)
+    # the range costs host time on every call, so only while profiling
+    scope = (torch.profiler.record_function("K7 pack")
+             if torch.autograd._profiler_enabled() else contextlib.nullcontext())
+    with torch.no_grad(), scope:
+        small, m2w, b2w = packed_params(pe_multiplier, pe_bias, weight_encoding,
+                                        C, groups)
     q, k, v, coord = (t.float().contiguous() for t in (q, k, v, coord))
     idx = idx.to(torch.int32).contiguous()
     nmask = nmask.to(torch.bool).contiguous()
@@ -158,4 +202,5 @@ def _gva_cuda(q, k, v, coord, idx, nmask, pe_multiplier, pe_bias,
         ctypes.c_void_p(_cuda.stream_of(q)))
     _cuda.check(err, "pcpdf_gva")
     GVA_LAUNCHES += 1
+    GVA_LAUNCHES_BY_WIDTH[C] = GVA_LAUNCHES_BY_WIDTH.get(C, 0) + 1
     return out

@@ -537,12 +537,17 @@ def test_kpconv_block_takes_kernel_in_eval_and_plain_in_training(dev, residual):
 
 
 def _gva_case(dev, c, pe, seed, n=3000, valid=(3000, 1900), s=16):
-    """q/k/v, coords, the s nearest as neighbours (~20% of the slots masked,
-    every 7th query with none) and an eval attention module of width c with
-    random weights and BatchNorm statistics."""
+    """q/k/v, coords, the s nearest as neighbours (s random valid rows past
+    K1's 64; ~20% of the slots masked, every 7th query with none) and an
+    eval attention module of width c with random weights and BatchNorm
+    statistics."""
     gen = torch.Generator().manual_seed(seed)
     coord, mask = _cloud(seed, len(valid), n, list(valid), dev)
-    idx, d2 = geometry.knn(coord, coord, s, mask)
+    if s <= 64:
+        idx, d2 = geometry.knn(coord, coord, s, mask)
+    else:
+        idx = torch.stack([torch.randint(0, nv, (n, s), generator=gen) for nv in valid])
+        idx, d2 = idx.to(dev, torch.int32), torch.zeros(idx.shape, device=dev)
     nmask = (torch.isfinite(d2) & mask[..., None]
              & (torch.rand(idx.shape, generator=gen) >= 0.2).to(dev))
     nmask[:, ::7] = False
@@ -555,13 +560,22 @@ def _gva_case(dev, c, pe, seed, n=3000, valid=(3000, 1900), s=16):
             attn.linear_p_bias, attn.weight_encoding, c // 8), attn
 
 
-@pytest.mark.parametrize("pe", [(False, True), (True, False), (True, True)])
-@pytest.mark.parametrize("c", [48, 96, 192, 384])
-def test_gva_kernel_matches_plain(dev, c, pe):
-    """K7 within 1e-4 of max |plain| (f32 sums in another order, an online
-    softmax, BatchNorms folded), in every branch combination; queries
-    without a neighbour come out 0."""
-    case, _ = _gva_case(dev, c, pe, seed=c + 2 * pe[0] + pe[1])
+@pytest.mark.parametrize("pe", [(False, True), (True, False), (True, True), (False, False)])
+@pytest.mark.parametrize("c,s,n", [(48, 16, 3000), (96, 16, 3000), (192, 16, 3000),
+                                   (384, 16, 3000), (512, 16, 3000), (48, 12, 1001),
+                                   (384, 12, 1001), (512, 8, 1001), (192, 70, 1001)])
+def test_gva_kernel_matches_plain(dev, c, s, n, pe):
+    """K7 within 1e-4 of max |plain| (f32 sums in another order, split-TF32
+    products, BatchNorms folded), at every width in every branch
+    combination, no positional encoding included; queries without a
+    neighbour come out 0.  The ragged cases:
+    S = 12 does not divide a tile's rows, S = 8 fills a tile with more
+    queries, S = 70 > 64 rows takes two row chunks a query (merged by an
+    online softmax), and B * N = 2,002 is no multiple of any tile's
+    queries."""
+    ragged = (s, n) != (16, 3000)
+    case, _ = _gva_case(dev, c, pe, seed=c + 2 * pe[0] + pe[1] + ragged * s, n=n,
+                        valid=(n, 2 * n // 3) if ragged else (3000, 1900), s=s)
     before = gva.GVA_LAUNCHES
     with torch.inference_mode():
         out = gva.grouped_vector_attention(*case)

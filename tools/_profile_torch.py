@@ -37,10 +37,11 @@ def kind_of(name):
     return "element-wise and other"
 
 
-def k1_prep_kernels(prof):
+def range_kernels(prof, name):
     """{kernel name: [device us, launches]} of the PyTorch kernels launched
-    inside a ``K1 prep`` range (the sorts of the pruned kNN's plan): they
-    belong to K1, not to "sort"."""
+    inside the ranges ``name``: ``K1 prep`` (the sorts of the pruned kNN's
+    plan, which belong to K1, not to "sort"), ``K7 pack`` (K7's parameter
+    packing)."""
     import torch
 
     moved = {}
@@ -48,7 +49,7 @@ def k1_prep_kernels(prof):
         if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
             continue
         parent = ev.cpu_parent
-        while parent is not None and parent.name != "K1 prep":
+        while parent is not None and parent.name != name:
             parent = parent.cpu_parent
         if parent is None:
             continue
@@ -88,12 +89,12 @@ def profile_call(fn, host_ms, what, top=24):
     # (a record_function range shows on the device's timeline too: not a kernel)
     kernels = [ev for ev in prof.key_averages()
                if ev.device_type == torch.autograd.DeviceType.CUDA
-               and device_us(ev) > 0 and ev.key != "K1 prep"]
+               and device_us(ev) > 0 and ev.key not in ("K1 prep", "K7 pack")]
     for ev in kernels:
         k = kind_of(ev.key)
         kinds[k] = kinds.get(k, 0.0) + device_us(ev) / 1e3
         launches[k] = launches.get(k, 0) + ev.count
-    prep = k1_prep_kernels(prof)
+    prep = range_kernels(prof, "K1 prep")
     for name, (us, n) in prep.items():
         k = kind_of(name)
         if k != K1:
@@ -107,6 +108,19 @@ def profile_call(fn, host_ms, what, top=24):
           f"(profiled), {1 - busy / host_ms:.3f} against the unprofiled host clock; "
           f"K1 includes {sum(v[0] for v in prep.values()) / 1e3:.3f} ms of PyTorch "
           f"kernels in its prep ({sum(v[1] for v in prep.values())} launches)")
+    # K7's parameter packing: host time of its ranges, device time of the
+    # kernels launched inside them (counted in their kinds above)
+    pack = range_kernels(prof, "K7 pack")
+    pack_host = [ev for ev in prof.key_averages() if ev.key == "K7 pack"
+                 and ev.device_type == torch.autograd.DeviceType.CPU]
+    k7_pack = {"host_ms": sum(ev.cpu_time_total for ev in pack_host) / 1e3,
+               "calls": sum(ev.count for ev in pack_host),
+               "device_ms": sum(v[0] for v in pack.values()) / 1e3,
+               "device_launches": sum(v[1] for v in pack.values())}
+    if k7_pack["calls"]:
+        print(f"K7 parameter packing: host {k7_pack['host_ms']:.3f} ms over "
+              f"{k7_pack['calls']} calls, device {k7_pack['device_ms']:.3f} ms over "
+              f"{k7_pack['device_launches']} kernels (in their kinds)")
     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {k:26s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%  "
               f"{launches[k]} launches")
@@ -118,7 +132,7 @@ def profile_call(fn, host_ms, what, top=24):
             "idle_share_profiled": 1 - busy / wall_ms,
             "idle_share_unprofiled": 1 - busy / host_ms,
             "by_kind_ms": kinds, "launches_by_kind": launches,
-            "k1_prep_torch_kernels": prep,
+            "k1_prep_torch_kernels": prep, "k7_pack": k7_pack,
             "top_kernels": [{"ms": device_us(ev) / 1e3, "count": ev.count,
                              "name": ev.key[:120]} for ev in ranked]}
 
