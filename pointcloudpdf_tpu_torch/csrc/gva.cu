@@ -73,7 +73,11 @@
 
 namespace {
 
-using pcpdf::mma_tf32;
+using pcpdf::cp_async16;
+using pcpdf::cp_async4;
+using pcpdf::cp_async_commit;
+using pcpdf::cp_async_wait;
+using pcpdf::mma_split;
 using pcpdf::split_tf32;
 
 constexpr int kThreads = 256;
@@ -149,41 +153,6 @@ struct Tile {
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// t = a b in split TF32, summed from 0; acc += t, rounded to nearest
-__device__ __forceinline__ void mma_split(float (&acc)[4], const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4],
-                                          const uint32_t (&bh)[2],
-                                          const uint32_t (&bl)[2]) {
-  const float kZero[4] = {0.f, 0.f, 0.f, 0.f};
-  float t[4];
-  mma_tf32(t, al, bh, kZero);
-  mma_tf32(t, ah, bl, t);
-  mma_tf32(t, ah, bh, t);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += t[e];
 }
 
 // kMul: the multiplier encoding is on (its accumulators exist, and take the

@@ -1,5 +1,9 @@
-// Shared by the PT-v1 vector-attention kernels (forward and backward): the
-// packed parameter buffer's layout.
+// Shared by the PT-v1 vector-attention kernels, forward
+// (vector_attention.cu) and backward (vector_attention_bwd.cu): the packed
+// parameter buffer's layout and the chain's elementwise steps up to the
+// relation r.  Both kernels form every ReLU input with these expressions
+// and U = h2 W_w1 with the same k-steps and split-TF32 rounding, so the
+// backward's recompute opens the same ReLU gates as the forward.
 #pragma once
 
 #include "common.cuh"
@@ -30,6 +34,32 @@ __host__ __device__ constexpr AttnLayout attn_layout(int C, int G) {
   l.b2 = l.w2 + G * G;
   l.total = l.b2 + G;
   return l;
+}
+
+// The positional MLP's first layer of one pair, from p_rel = coord[j] -
+// coord[q]: f[o] = p_rel, f[3 + o] = z1, f[6 + o] = pre1, f[9 + o] = h
+__device__ __forceinline__ void attn_pos_hidden(const float* params,
+                                                const AttnLayout& L,
+                                                const float (&prel)[3],
+                                                float* f) {
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    const float z1 = params[L.p1b + o] + prel[0] * params[L.p1w + o] +
+                     prel[1] * params[L.p1w + 3 + o] +
+                     prel[2] * params[L.p1w + 6 + o];
+    const float pre1 = z1 * params[L.ps + o] + params[L.pt + o];
+    f[o] = prel[o];
+    f[3 + o] = z1;
+    f[6 + o] = pre1;
+    f[9 + o] = fmaxf(pre1, 0.f);
+  }
+}
+
+// p_r of one channel from the pair's hidden values h and the channel's
+// column of W_p2 (w) and b_p2 (b)
+__device__ __forceinline__ float attn_pr(float b, float h0, float h1, float h2,
+                                         float w0, float w1, float w2) {
+  return b + h0 * w0 + h1 * w1 + h2 * w2;
 }
 
 }  // namespace pcpdf

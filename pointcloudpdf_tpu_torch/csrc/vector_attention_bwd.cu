@@ -108,6 +108,8 @@ struct Tile {
   static_assert(C % CC == 0 && CC % 32 == 0 && GP % 8 == 0, "widths of the tile");
 };
 
+using pcpdf::attn_pos_hidden;
+using pcpdf::attn_pr;
 using pcpdf::mma_tf32;
 using pcpdf::split_tf32;
 
@@ -302,7 +304,7 @@ attn_bwd_kernel(const float* __restrict__ xq, const float* __restrict__ xk,
         float r[4], dwv[4];
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
-          const float pr = pb[v] + f[9] * pw[0][v] + f[10] * pw[1][v] + f[11] * pw[2][v];
+          const float pr = attn_pr(pb[v], f[9], f[10], f[11], pw[0][v], pw[1][v], pw[2][v]);
           r[v] = on ? k4[v] - q4[v] + pr : 0.f;
           dwv[v] = with_dw && on ? o4[v] * (v4[v] + pr) : 0.f;
         }
@@ -371,18 +373,9 @@ attn_bwd_kernel(const float* __restrict__ xq, const float* __restrict__ xk,
         for (int a = 0; a < 3; ++a)
           prel[a] = coord[(long long)j * 3 + a] - coord[(long long)q * 3 + a];
       }
+      attn_pos_hidden(params, L, prel, f);
 #pragma unroll
-      for (int o = 0; o < 3; ++o) {
-        const float z1 = params[L.p1b + o] + prel[0] * params[L.p1w + o] +
-                         prel[1] * params[L.p1w + 3 + o] +
-                         prel[2] * params[L.p1w + 6 + o];
-        const float pre1 = z1 * params[L.ps + o] + params[L.pt + o];
-        f[o] = prel[o];
-        f[3 + o] = z1;
-        f[6 + o] = pre1;
-        f[9 + o] = fmaxf(pre1, 0.f);
-        sDh1[4 * p + o] = 0.f;
-      }
+      for (int o = 0; o < 3; ++o) sDh1[4 * p + o] = 0.f;
     }
     for (int i = tid; i < P * GS; i += kThreads) sD[i] = 0.f;
     __syncthreads();

@@ -19,7 +19,7 @@ from torch import nn
 from ...ops.geometry import grouping, interpolation, knn
 from ...ops.sampling import blocked_farthest_point_sampling
 from ...ops.vector_attention import (attention_train_affines,
-                                      vector_attention,
+                                      layer_attention, layer_weights,
                                       vector_attention_train)
 from ..norm import MaskedBatchNorm
 from ..utils.structure import (Points, masked_max, masked_mean,
@@ -31,7 +31,8 @@ class PointTransformerLayer(nn.Module):
     point_transformer_seg.py:19-78; mid_planes == out_planes).
 
     Eval runs the fused inference op (kernel K3 on the card) with the
-    BatchNorms folded from their running statistics.  Training on the
+    BatchNorms folded from their running statistics, its parameters packed
+    once a layer.  Training on the
     card folds them from the batch's masked statistics (a plain PyTorch
     pass) and runs the fused op with its backward (kernels K3 and K4);
     on the CPU it runs the unfused modules, which the tests hold the
@@ -70,22 +71,14 @@ class PointTransformerLayer(nn.Module):
         elif self.training:
             out = self._fused_train(coord, x_q, x_k, x_v, idx, nmask)
         else:
-            out = vector_attention(
-                x_q, x_k, x_v, coord, idx, nmask, *self._weights(),
-                *self.linear_p[1].affine(), *self.linear_w[0].affine(),
-                *self.linear_w[3].affine(), share_planes=self.share_planes)
+            out = layer_attention(x_q, x_k, x_v, coord, idx, nmask,
+                                  self.linear_p, self.linear_w,
+                                  share_planes=self.share_planes)
         return where_valid(mask, out)
-
-    def _weights(self):
-        """The four Linear (W, b) pairs as (in, out) matrices."""
-        p1, _, _, p2 = self.linear_p
-        _, _, w1, _, _, w2 = self.linear_w
-        return (p1.weight.t(), p1.bias, p2.weight.t(), p2.bias,
-                w1.weight.t(), w1.bias, w2.weight.t(), w2.bias)
 
     def _fused_train(self, coord, x_q, x_k, x_v, idx, nmask):
         """Batch-statistic affines, then the fused op with its backward."""
-        weights = self._weights()
+        weights = layer_weights(self.linear_p, self.linear_w)
         affines = attention_train_affines(
             x_q, x_k, coord, idx, nmask, *weights[:6],
             self.linear_p[1], self.linear_w[0], self.linear_w[3])

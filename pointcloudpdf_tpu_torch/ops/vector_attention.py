@@ -11,6 +11,9 @@ the source notes say what bounds each on the card.
 
 - ``vector_attention``: eval / no-grad entry with the BatchNorm affines
   folded from the running statistics; refuses to record a gradient.
+  ``layer_attention`` is the same entry for an eval layer's two MLPs: on
+  the card it packs their parameters and folded affines once a layer
+  (``packed_params``), not at every call.
 - ``vector_attention_train``: the same chain with the affines folded from
   the batch's masked statistics (``attention_train_affines``, plain
   differentiable PyTorch, as the JAX package keeps ``attention_train_stats``
@@ -34,6 +37,7 @@ import torch
 
 from . import _cuda
 from .geometry import gather_rows
+from .gva import split_tf32
 
 # launches since the last reset: the forward kernel from the inference entry
 # (K3), and K4's two halves, the forward kernel from the training entry and
@@ -63,17 +67,83 @@ def _vector_attention_cuda(x_q, x_k, x_v, coord, idx, nmask,
                            p1_w, p1_b, p2_w, p2_b, w1_w, w1_b, w2_w, w2_b,
                            bnp_scale, bnp_shift, bnw1_scale, bnw1_shift,
                            bnw2_scale, bnw2_shift, share_planes):
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x_q, x_k, x_v, p2_w, w1_w, w2_w)):
-        raise RuntimeError("vector_attention has no backward: call it under "
-                           "torch.no_grad() / inference_mode(), or use "
-                           "vector_attention_train")
+    _refuse_grad(x_q, x_k, x_v, p2_w, w1_w, w2_w)
     _check_widths(x_q.shape[-1], share_planes)
     params = _pack_params(p1_w, p1_b, p2_w, p2_b, w1_w, w1_b, w2_w, w2_b,
                           bnp_scale, bnp_shift, bnw1_scale, bnw1_shift,
                           bnw2_scale, bnw2_shift)
     return _launch_forward(*_kernel_inputs(x_q, x_k, x_v, coord, idx, nmask),
                            params)
+
+
+def layer_weights(linear_p, linear_w):
+    """The four Linear (W, b) pairs of a ``PointTransformerLayer``'s
+    positional MLP ``linear_p`` and weight MLP ``linear_w`` as (in, out)
+    matrices, in signature order."""
+    p1, _, _, p2 = linear_p
+    _, _, w1, _, _, w2 = linear_w
+    return (p1.weight.t(), p1.bias, p2.weight.t(), p2.bias,
+            w1.weight.t(), w1.bias, w2.weight.t(), w2.bias)
+
+
+def eval_params(linear_p, linear_w):
+    """The 14 parameter tensors of the attention in signature order, the
+    three BatchNorms folded from their running statistics."""
+    return (*layer_weights(linear_p, linear_w), *linear_p[1].affine(),
+            *linear_w[0].affine(), *linear_w[3].affine())
+
+
+def packed_params(linear_p, linear_w):
+    """The forward kernel's buffers for an eval layer's two MLPs, the packed
+    parameters (``_pack_params``) and W_w1's split pairs (``_split_w1``),
+    made once: kept on ``linear_w`` and made again when a parameter or
+    running statistic of either changes its storage or its version counter
+    (a copy, an optimizer step, a ``load_state_dict``; a write through
+    ``.data`` goes unseen).  Modules made under ``torch.inference_mode``
+    have no version counters: they are packed at every call."""
+    if linear_p.training or linear_w.training:
+        raise ValueError("packed_params folds the running statistics: the "
+                         "modules must be in eval mode")
+
+    def pack():
+        params = _pack_params(*eval_params(linear_p, linear_w))
+        return params, _split_w1(params, linear_w[2].in_features)
+
+    tensors = [t for m in (linear_p, linear_w)
+               for t in (*m.parameters(), *m.buffers())]
+    if any(t.is_inference() for t in tensors):
+        return pack()
+    key = tuple((t.data_ptr(), t._version) for t in tensors)
+    cached = getattr(linear_w, "_attn_packed", None)
+    if cached is None or cached[0] != key:
+        cached = (key, pack())
+        linear_w._attn_packed = cached
+    return cached[1]
+
+
+def layer_attention(x_q, x_k, x_v, coord, idx, nmask, linear_p, linear_w,
+                    share_planes: int = 8):
+    """``vector_attention`` of an eval ``PointTransformerLayer`` (its
+    positional MLP ``linear_p`` and weight MLP ``linear_w``): on CUDA
+    tensors kernel K3 on the layer's packed buffer (``packed_params``), on
+    CPU tensors the plain version."""
+    if not _cuda.use_kernel(x_q):
+        return vector_attention_plain(
+            x_q, x_k, x_v, coord, idx, nmask,
+            *eval_params(linear_p, linear_w), share_planes=share_planes)
+    _refuse_grad(x_q, x_k, x_v, *linear_p.parameters(), *linear_w.parameters())
+    _check_widths(x_q.shape[-1], share_planes)
+    with torch.no_grad():
+        params, w1s = packed_params(linear_p, linear_w)
+    return _launch_forward(*_kernel_inputs(x_q, x_k, x_v, coord, idx, nmask),
+                           params, w1s=w1s)
+
+
+def _refuse_grad(*tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("vector_attention has no backward: call it under "
+                           "torch.no_grad() / inference_mode(), or use "
+                           "vector_attention_train")
 
 
 def _check_widths(C, share_planes):
@@ -91,6 +161,15 @@ def _pack_params(p1_w, p1_b, p2_w, p2_b, w1_w, w1_b, w2_w, w2_b,
         p2_w.reshape(-1), p2_b, bnw1_scale, bnw1_shift,
         w1_w.t().reshape(-1), w1_b, bnw2_scale, bnw2_shift,
         w2_w.reshape(-1), w2_b]).float().contiguous()
+
+
+def _split_w1(params, C):
+    """W_w1 of a packed buffer as the forward kernel reads it: (C, 2 G), each
+    weight as its TF32 pair (hi, lo) (``gva.split_tf32``, the split of the
+    kernels' products)."""
+    G = C // 8
+    start = 18 + 6 * C  # attn_layout(C, G).w1t
+    return split_tf32(params[start:start + G * C].reshape(G, C).t()).contiguous()
 
 
 def _unpack_params(flat, C, G):
@@ -111,20 +190,27 @@ def _kernel_inputs(x_q, x_k, x_v, coord, idx, nmask):
             nmask.to(torch.bool).contiguous())
 
 
-def _launch_forward(x_q, x_k, x_v, coord, idx, nmask, params, train=False):
+def _launch_forward(x_q, x_k, x_v, coord, idx, nmask, params, train=False,
+                    w1s=None):
+    """The forward kernel on the packed ``params``; ``w1s``: their W_w1 split
+    (``_split_w1``), made here where not given."""
     global ATTENTION_LAUNCHES, ATTENTION_TRAIN_LAUNCHES
     B, N, C = x_q.shape
     K = idx.shape[-1]
     lib = _cuda.library()
     if params.numel() != lib.pcpdf_vector_attention_params(C):
         raise ValueError("vector attention: parameter shapes do not match C")
+    if w1s is None:
+        w1s = _split_w1(params, C)
+    if w1s.shape != (C, C // 4):
+        raise ValueError("vector attention: W_w1's pairs do not match C")
     _cuda.expect_cuda("vector_attention", x_q, x_k, x_v, coord, idx, nmask,
-                      params)
+                      params, w1s)
     out = torch.empty((B, N, C), dtype=torch.float32, device=x_q.device)
     err = lib.pcpdf_vector_attention(
         x_q.data_ptr(), x_k.data_ptr(), x_v.data_ptr(), coord.data_ptr(),
-        idx.data_ptr(), nmask.data_ptr(), params.data_ptr(), B, N, C, K,
-        out.data_ptr(), ctypes.c_void_p(_cuda.stream_of(x_q)))
+        idx.data_ptr(), nmask.data_ptr(), params.data_ptr(), w1s.data_ptr(),
+        B, N, C, K, out.data_ptr(), ctypes.c_void_p(_cuda.stream_of(x_q)))
     _cuda.check(err, "pcpdf_vector_attention")
     if train:
         ATTENTION_TRAIN_LAUNCHES += 1

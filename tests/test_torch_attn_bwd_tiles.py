@@ -52,6 +52,66 @@ def product(a, b, split):
     return al @ bh + ah @ bl + ah @ bh
 
 
+def chunks_of(C):
+    """The 64-channel chunks of C (Tile::CC), in the kernels' order."""
+    return [slice(c0, min(C, c0 + CHUNK)) for c0 in range(0, C, CHUNK)]
+
+
+def tile_pairs(idx, nmask, N, P, SS, s0=0, TQ=None):
+    """The pair rows of every tile, both kernels' layout: TQ (P // SS unless
+    given) whole queries a tile, row p of tile t is query t TQ + p // SS and
+    slot s0 + p % SS (SS = K, or a row chunk of a query's slots where
+    K > P); rows past the last query or the last slot, and masked slots,
+    have a 0 flag.  Returns (query rows, flags, gathered rows), each
+    (T, P)."""
+    K = idx.shape[-1]
+    M = nmask.numel() // K
+    TQ = P // SS if TQ is None else TQ
+    T = -(-M // TQ)
+    p = torch.arange(P)
+    q = torch.arange(T)[:, None] * TQ + p // SS              # (T, P)
+    slot = (s0 + p % SS).expand(T, P)
+    live = (p < TQ * SS) & (q < M) & (slot < K)
+    qc = torch.where(live, q, torch.zeros_like(q))
+    slot = torch.where(live, slot, torch.zeros_like(slot))
+    flag = live & nmask.reshape(M, K)[qc, slot]
+    j = torch.where(flag, (qc // N) * N + idx.reshape(M, K)[qc, slot].long(), 0)
+    return qc, flag, j
+
+
+def positional_hidden(xyz, qc, j, flag, p1_w, p1_b, s_p, t_p):
+    """The positional MLP's first layer of every pair row: p_rel, z1, pre1
+    and h (0-flag rows see p_rel = 0)."""
+    prel = (xyz[j] - xyz[qc]) * flag[..., None].to(xyz.dtype)
+    z1 = prel @ p1_w + p1_b
+    pre1 = z1 * s_p + t_p
+    return prel, z1, pre1, torch.relu(pre1)
+
+
+def relation(xq, xk, qc, j, flag, h, p2_w, p2_b, cs):
+    """r = x_k[j] - x_q + p_r of a chunk (0 on 0-flag rows), and p_r."""
+    pr = p2_b[cs] + h @ p2_w[:, cs]
+    return (xk[j, cs] - xq[qc, cs] + pr) * flag[..., None].to(xq.dtype), pr
+
+
+def h2_of(r, s1, t1, cs):
+    return torch.relu(r * s1[cs] + t1[cs])
+
+
+def pass_a(xq, xk, qc, j, flag, h, p2_w, p2_b, w1_w, w1_b, s1, t1, split,
+           each_chunk=None):
+    """U = h2 W_w1 + b_w1 of every pair row as both kernels form it: C in
+    64-channel chunks, each chunk's product added to the sum in order.
+    ``each_chunk(cs, r, p_r)`` sees every chunk's relation."""
+    u = 0
+    for cs in chunks_of(xq.shape[-1]):
+        r, pr = relation(xq, xk, qc, j, flag, h, p2_w, p2_b, cs)
+        if each_chunk is not None:
+            each_chunk(cs, r, pr)
+        u = u + product(h2_of(r, s1, t1, cs), w1_w[cs], split)
+    return u + w1_b
+
+
 def tiled_backward(x_q, x_k, x_v, coord, idx, nmask, params, dout, split):
     """(d x_q, d x_k, d x_v, *d params in signature order), as the tiled
     kernel computes them, vectorised over the tiles."""
@@ -65,38 +125,20 @@ def tiled_backward(x_q, x_k, x_v, coord, idx, nmask, params, dout, split):
     T = -(-M // TQ)
     dt = x_q.dtype
     xq, xk, xv, do = (t.reshape(M, C) for t in (x_q, x_k, x_v, dout))
-    xyz = coord.reshape(M, 3)
-    # the rows of each tile: query q = t TQ + p // K, slot p % K
-    p = torch.arange(P)
-    q = torch.arange(T)[:, None] * TQ + p // K               # (T, P)
-    live = (p < TQ * K) & (q < M)
-    qc = torch.where(live, q, torch.zeros_like(q))
-    slot = p.expand(T, P) % K
-    flag = live & nmask.reshape(M, K)[qc, slot]
-    j = torch.where(flag, (qc // N) * N + idx.reshape(M, K)[qc, slot].long(), 0)
+    qc, flag, j = tile_pairs(idx, nmask, N, P, K)
     f = flag[..., None].to(dt)
-    prel = (xyz[j] - xyz[qc]) * f
-    z1 = prel @ p1_w + p1_b
-    pre1 = z1 * s_p + t_p
-    h = torch.relu(pre1)
+    prel, z1, pre1, h = positional_hidden(coord.reshape(M, 3), qc, j, flag,
+                                          p1_w, p1_b, s_p, t_p)
 
-    def relation(cs):
-        pr = p2_b[cs] + h @ p2_w[:, cs]
-        return (xk[j, cs] - xq[qc, cs] + pr) * f, pr
-
-    def h2_of(r, cs):
-        return torch.relu(r * s1[cs] + t1[cs])
-
-    chunks = [slice(c0, min(C, c0 + CHUNK)) for c0 in range(0, C, CHUNK)]
     # pass A: u over the chunks, dw
-    u = torch.zeros(T, P, G, dtype=dt)
     dw = torch.zeros(T, P, G, dtype=dt)
-    for cs in chunks:
-        r, pr = relation(cs)
+
+    def add_dw(cs, r, pr):
         c = torch.arange(C)[cs]
         dw.index_add_(2, c % G, do[qc, cs] * (xv[j, cs] + pr) * f)
-        u = u + product(h2_of(r, cs), w1_w[cs], split)
-    u = u + w1_b
+
+    u = pass_a(xq, xk, qc, j, flag, h, p2_w, p2_b, w1_w, w1_b, s1, t1, split,
+               add_dw)
     pre3 = u * s2 + t2
     h3 = torch.relu(pre3)
     logit = product(h3, w2_w, split) + w2_b
@@ -128,11 +170,11 @@ def tiled_backward(x_q, x_k, x_v, coord, idx, nmask, params, dout, split):
     dp2w = torch.zeros(T, 3, C, dtype=dt)
     dp2b, ds1, dt1 = (torch.zeros(T, C, dtype=dt) for _ in range(3))
     dh1 = torch.zeros(T, P, 3, dtype=dt)
-    for cs in chunks:
-        r, pr = relation(cs)
+    for cs in chunks_of(C):
+        r, pr = relation(xq, xk, qc, j, flag, h, p2_w, p2_b, cs)
         c = torch.arange(C)[cs]
         dh2 = product(du, w1_w[cs].t(), split)
-        dw1[:, cs] = product(h2_of(r, cs).transpose(1, 2), du, split)
+        dw1[:, cs] = product(h2_of(r, s1, t1, cs).transpose(1, 2), du, split)
         dpre2 = torch.where(r * s1[cs] + t1[cs] > 0, dh2, 0.0) * f
         dr = dpre2 * s1[cs]
         dv = do[qc, cs] * w[:, :, c % G] * f
@@ -163,12 +205,12 @@ def tiled_backward(x_q, x_k, x_v, coord, idx, nmask, params, dout, split):
 
 
 def _case(C, K, seed, B=2, N=37):
-    """Seeded inputs: a masked tail in sample 1, ~10% of the slots masked,
-    one query with no valid slot; N * B is no multiple of the tile's
-    queries."""
+    """Seeded inputs: a masked tail in every odd sample, ~10% of the slots
+    masked, one query with no valid slot; N * B is no multiple of the
+    tile's queries."""
     rng = np.random.RandomState(seed)
     G = C // 8
-    valid = [N, N - 9]
+    valid = [N - 9 * (b % 2) for b in range(B)]
     coord = (rng.rand(B, N, 3) * 2).astype(np.float32)
     mask = np.arange(N)[None] < np.array(valid)[:, None]
     coord[~mask] = 0

@@ -191,12 +191,9 @@ def test_blocked_fps_kernel_matches_plain(dev):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("c,k", [(32, 8), (64, 16), (128, 16), (256, 16), (512, 16)])
-def test_attention_kernel_matches_plain(dev, c, k):
-    """Eval layer on random weights and BatchNorm statistics: K3 against
-    the plain version within 1e-4 of the output's magnitude (f32 sums in
-    another order)."""
-    gen = torch.Generator().manual_seed(c)
+def _eval_attention_layer(c, k, seed):
+    """An eval layer with random BatchNorm affines and running statistics."""
+    gen = torch.Generator().manual_seed(seed)
     layer = PointTransformerLayer(c, c, share_planes=8, nsample=k)
     with torch.no_grad():
         for bn in layer.modules():
@@ -206,9 +203,21 @@ def test_attention_kernel_matches_plain(dev, c, k):
                 bn.bias.copy_(0.1 * torch.randn(n, generator=gen))
                 bn.running_mean.copy_(0.2 * torch.randn(n, generator=gen))
                 bn.running_var.copy_(0.5 + 1.5 * torch.rand(n, generator=gen))
+    return layer, gen
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("k", [5, 8, 16])
+def test_attention_kernel_matches_plain(dev, c, k):
+    """Eval layer on random weights and BatchNorm statistics: K3 against
+    the plain version within 1e-4 of the output's magnitude (f32 sums in
+    another order).  Three samples of 1,499 rows, one with a masked tail:
+    B * N = 4,497 leaves a partial last tile at every tile size (2 to 25
+    queries)."""
+    layer, gen = _eval_attention_layer(c, k, seed=c + k)
     layer = layer.to(dev).eval()
-    coord, mask = _cloud(5, 2, 3000, [3000, 2000], dev)
-    feat = torch.randn((2, 3000, c), generator=gen).to(dev)
+    coord, mask = _cloud(5, 3, 1499, [1499, 1000, 1499], dev)
+    feat = torch.randn((3, 1499, c), generator=gen).to(dev)
     pts = Points(coord, feat, mask)
     before = va.ATTENTION_LAUNCHES
     with torch.inference_mode():
@@ -218,6 +227,109 @@ def test_attention_kernel_matches_plain(dev, c, k):
     assert va.ATTENTION_LAUNCHES == before + 1
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert (out[~mask] == 0).all()
+
+
+def test_attention_layer_packs_once(dev):
+    """An eval layer packs its parameters once (``packed_params``) and gives
+    what the tensor entry gives on the layer's weights and folded affines,
+    bit for bit; a changed running statistic repacks."""
+    layer, gen = _eval_attention_layer(64, 16, seed=3)
+    layer = layer.to(dev).eval()
+    coord, mask = _cloud(8, 2, 2000, [2000, 1300], dev)
+    feat = torch.randn((2, 2000, 64), generator=gen).to(dev)
+    idx, d2 = geometry.knn(coord, coord, 16, mask)
+    nmask = torch.isfinite(d2) & mask[..., None]
+    mlps = (layer.linear_p, layer.linear_w)
+    for step in range(2):
+        with torch.inference_mode():
+            if step:
+                layer.linear_w[3].running_var.mul_(1.5)
+            out = layer(Points(coord, feat, mask))
+            packed = va.packed_params(*mlps)
+            assert va.packed_params(*mlps) is packed
+            assert torch.equal(packed[0], va._pack_params(*va.eval_params(*mlps)))
+            want = va.vector_attention(
+                layer.linear_q(feat), layer.linear_k(feat), layer.linear_v(feat),
+                coord, idx, nmask, *va.eval_params(*mlps))
+        assert torch.equal(out, torch.where(mask[..., None], want, 0.0)), step
+
+
+def _attention_case(dev, c, k, seed, n=1500, valid=(1500, 900)):
+    """``vector_attention`` inputs without gradients (``_train_case``)."""
+    feats, coord, idx, nmask, params, _ = _train_case(dev, c, k, seed, n=n,
+                                                      valid=valid, drop=0.1)
+    return ([x.detach() for x in feats], coord, idx, nmask,
+            [x.detach() for x in params])
+
+
+@pytest.mark.parametrize("c,k,reps", [(512, 40, 1), (32, 26, 5)])
+def test_attention_kernel_k_above_the_tile(dev, c, k, reps):
+    """K above the tile's pair rows (P = 32 at C = 512; at C = 32, P = 128
+    against K = 130, the kNN table of 26 slots repeated five times): a
+    query's slots in row chunks merged by the online softmax, the last
+    chunk partial."""
+    feats, coord, idx, nmask, params = _attention_case(dev, c, k, seed=k)
+    idx, nmask = idx.repeat(1, 1, reps), nmask.repeat(1, 1, reps)
+    with torch.inference_mode():
+        out = va.vector_attention(*feats, coord, idx, nmask, *params)
+        with _cuda.plain_versions():
+            ref = va.vector_attention(*feats, coord, idx, nmask, *params)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("c,k", [(64, 1), (512, 3)])
+def test_attention_kernel_few_slots(dev, c, k):
+    """K below 4: a tile holds at most P / 4 queries, its other rows
+    unused."""
+    feats, coord, idx, nmask, params = _attention_case(dev, c, k, seed=k + 30)
+    with torch.inference_mode():
+        out = va.vector_attention(*feats, coord, idx, nmask, *params)
+        with _cuda.plain_versions():
+            ref = va.vector_attention(*feats, coord, idx, nmask, *params)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("c,k", [(32, 8), (512, 40)])
+def test_attention_kernel_all_masked_batch(dev, c, k):
+    """No valid neighbour anywhere: exactly 0, in one row chunk or several."""
+    feats, coord, idx, nmask, params = _attention_case(dev, c, k, seed=9)
+    with torch.inference_mode():
+        out = va.vector_attention(*feats, coord, idx, torch.zeros_like(nmask), *params)
+    assert (out == 0).all()
+
+
+@pytest.mark.parametrize("c,k", [(32, 8), (256, 16)])
+def test_attention_kernel_query_without_neighbours(dev, c, k):
+    """Queries with no valid neighbour give exactly 0; the others agree
+    with the plain version."""
+    feats, coord, idx, nmask, params = _attention_case(dev, c, k, seed=10)
+    nmask = nmask.clone()
+    nmask[:, ::7] = False
+    with torch.inference_mode():
+        out = va.vector_attention(*feats, coord, idx, nmask, *params)
+        with _cuda.plain_versions():
+            ref = va.vector_attention(*feats, coord, idx, nmask, *params)
+    assert (out[:, ::7] == 0).all()
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("stage", [3, 4])
+def test_attention_train_forward_at_the_train_step_shapes(dev, stage):
+    """The training forward (K3's kernel under ``VectorAttentionFunction``)
+    at the Seg50 train step's stages 4 and 5: B = 16 crops of the shipped
+    batch in the 81,920 bucket, C = 256 / 512, K = 16."""
+    rng = np.random.RandomState(20 + stage)
+    crops = rng.randint(chip_smoke.TRAIN_CROP[0], chip_smoke.TRAIN_CROP[1] + 1, size=16)
+    name, n, c, k, valid = chip_smoke.attention_train_shapes(crops)[stage]
+    feats, coord, idx, nmask, params = chip_smoke.attention_inputs(dev, rng, n, c, k,
+                                                                   valid=valid)
+    before = va.ATTENTION_TRAIN_LAUNCHES
+    with torch.no_grad():
+        out = va.vector_attention_train(*feats, coord, idx, nmask, *params)
+        with _cuda.plain_versions():
+            ref = va.vector_attention_train(*feats, coord, idx, nmask, *params)
+    assert va.ATTENTION_TRAIN_LAUNCHES == before + 1, name
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
 
 
 def test_attention_kernel_refuses_grad(dev):

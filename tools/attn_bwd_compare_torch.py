@@ -122,7 +122,7 @@ def compare(fn, rng):
                      chip_smoke.cuda_ms(lambda: va._launch_backward(*inputs, packed, dout), iters),
                      chip_smoke.cuda_ms(lambda: parent_backward(fn, *inputs, packed, dout), iters)]
 
-            # the training forward kernel (K3's, unchanged) and a backward
+            # the training forward kernel (K3's) and a backward
             def step(backward):
                 va._launch_forward(*inputs, packed, train=True)
                 backward(*inputs, packed, dout)
