@@ -8,11 +8,15 @@ Phases, in order; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from ``pointcloudpdf_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on CUDA tensors at the
-   main path's shapes, with both times (CUDA events) and the least time
-   the card could take for the same work (its bound); K1 at eight shapes,
-   one of them a val-pass-sized set of 262,144 points, each with the share
-   of the brute-force work that the bound-pruned kernel visited and, where
-   it runs, its plan (prep kernels) against the plain plan; K3 at seven,
+   main path's shapes, with both times (CUDA events; K1 and K2 from a CUDA
+   graph of calls) and the least time the card could take for the same
+   work (its bound); K1 at nineteen shapes: eight for the bound-pruned
+   kernel's range and the ST sparse keys, one of them a val-pass-sized set
+   of 262,144 points, each with the share of the brute-force work that the
+   bound-pruned kernel visited and, where it runs, its plan (prep kernels)
+   against the plain plan, and eleven of the brute-force kernel at the
+   PT-v1 serving forward's and the train step's shapes and at its edges;
+   K2 alone on the windows of the blocked call; K3 at seven,
    two serving stages at B = 2 and the train step's five stages at B = 16;
    K4 at five, three stages at B = 2 and the train step's stages 4 and 5
    at B = 16; neither vector-attention kernel spilling registers;
@@ -118,6 +122,31 @@ def cuda_ms(fn, iters):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters):
+    """Mean device milliseconds per call over ``iters`` calls captured in
+    one CUDA graph and replayed: the kernels' own time, without the host's
+    time to issue them, which at small shapes is the larger."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -307,6 +336,52 @@ def knn_cases(dev, rng):
             (f"self k=16 N={N_VAL} B=1", big, big, 16, big_mask, True)]
 
 
+def knn_brute_cases(dev):
+    """K1a's phase-3 cases, the brute-force kernel at the main path's shapes
+    and at its edges: (name, query, ref, k, ref_mask, same).  PT-v1 serving
+    at B = 1 in the 65,536 bucket: a fragment's stages 3-5 (4,096 / 1,024 /
+    256 points; a prefix of the seeded cloud stands for the FPS picks), the
+    TransitionDown into stage 4 and the TransitionUp out of stage 3; the
+    train step at B = 16 (crops spread over ``TRAIN_CROP`` in the 81,920
+    bucket): stage 3 (5,120 a crop, partly masked) and the TransitionUp out
+    of it into stage 2 (20,480).  From their own seed, so that the other
+    phases' inputs stay put."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 7)
+    frag = torch.from_numpy(clustered_cloud(rng, 1, N_MAIN, [N_MAIN])[0]).to(dev)
+
+    def stage(n):
+        return frag[:, :n].contiguous(), torch.ones((1, n), dtype=torch.bool, device=dev)
+
+    s3, m3 = stage(4096)
+    s4, m4 = stage(1024)
+    s5, m5 = stage(256)
+    s2 = stage(16384)[0]
+    crops = np.linspace(TRAIN_CROP[0], TRAIN_CROP[1], 16).astype(int)
+    t2, t2_mask = (torch.from_numpy(a).to(dev) for a in clustered_cloud(
+        rng, 16, 20480, train_stage_valid(crops, 1)))
+    t3 = t2[:, :5120].contiguous()
+    t3_mask = (torch.arange(5120, device=dev)[None, :]
+               < torch.tensor(train_stage_valid(crops, 2), device=dev)[:, None])
+    # edges: an all-masked sample beside one with fewer valid refs than k;
+    # 512 points eight times over (exact ties everywhere); k = 32 and 64
+    e, e_mask = (torch.from_numpy(a).to(dev) for a in clustered_cloud(
+        rng, 3, 2048, [2048, 0, 5]))
+    dup = s3[:, rng.permutation(4096) % 512].contiguous()
+    return [("serve self k=16 N=4096 B=1", s3, s3, 16, m3, True),
+            ("serve self k=16 N=1024 B=1", s4, s4, 16, m4, True),
+            ("serve self k=16 N=256 B=1", s5, s5, 16, m5, True),
+            ("serve cross 1024->4096 k=16 B=1", s4, s3, 16, m3, False),
+            ("serve interp 16384->4096 k=3 B=1", s2, s3, 3, m3, False),
+            ("train self k=16 N=5120 B=16", t3, t3, 16, t3_mask, True),
+            ("train interp 20480->5120 k=3 B=16", t2, t3, 3, t3_mask, False),
+            ("edge all-masked, 5 valid k=16 N=2048 B=3", e, e, 16, e_mask, True),
+            ("edge duplicates x8 k=16 N=4096 B=1", dup, dup, 16, m3, True),
+            ("edge k=32 N=4096 B=1", s3, s3, 32, m3, True),
+            ("edge k=64 N=4096 B=1", s3, s3, 64, m3, True)]
+
+
 def knn_bounds(q, r, k, m):
     """K1's bound for the work these inputs need, per the on-chip rule:
     coordinates, mask and outputs moved once, and 8 flop (3 sub, 3 mul, 2
@@ -338,15 +413,20 @@ def check_knn(dev, rng):
     from pointcloudpdf_tpu_torch.ops import _cuda, geometry
 
     worst, rows = 0.0, []
-    for name, q, r, k, m, same in knn_cases(dev, rng):
+    for name, q, r, k, m, same in knn_cases(dev, rng) + knn_brute_cases(dev):
         pruned = r.shape[1] >= geometry.KNN_PRUNE_MIN_REFS
         idx, d2 = geometry.knn(q, r, k, m)
+        # the plain version once, timed: it takes up to seconds here
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         with _cuda.plain_versions():
+            start.record()
             pidx, pd2 = geometry.knn(q, r, k, m)
+            end.record()
         torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
         fin = torch.isfinite(d2)
         expect(torch.equal(d2, pd2), f"K1 {name}: dist2 bitwise equal")
-        worst = max(worst, float((d2[fin] - pd2[fin]).abs().max()))
+        worst = max(worst, float((d2[fin] - pd2[fin]).abs().max()) if bool(fin.any()) else 0.0)
         diff = idx != pidx
         # where the indices differ the distances must be an exact tie:
         # the kernel's index really lies at the reported distance
@@ -355,11 +435,13 @@ def check_knn(dev, rng):
         expect(bool(((true_d2 - d2).abs()[fin & diff] <= 1e-6 * d2[fin & diff]
                      .clamp(min=1e-12)).all()),
                f"K1 {name}: idx equal except at {int(diff.sum())} exact ties")
+        expect(bool((idx >= 0).all() and (idx < r.shape[1]).all()),
+               f"K1 {name}: every index a row of the refs")
+        # back to back through the wrapper (with the host's time to issue
+        # each call), and the kernels alone (a CUDA graph of 5 calls)
         ms = cuda_ms(lambda: geometry.knn(q, r, k, m), 5)
-        with _cuda.plain_versions():  # one call is enough at the val-pass size
-            plain_ms = cuda_ms(lambda: geometry.knn(q, r, k, m),
-                               1 if q.shape[1] * r.shape[1] * q.shape[0] > 2 ** 34 else 2)
-        share, most = 1.0, None
+        kernel_ms = graph_ms(lambda: geometry.knn(q, r, k, m), 5)
+        share, most, lanes = 1.0, None, None
         if pruned:
             share, most = visited_share(q, r, k, m, same)
             with _cuda.plain_versions():
@@ -367,22 +449,24 @@ def check_knn(dev, rng):
             expect(all(torch.equal(a, b) for a, b in zip(
                 geometry.knn_plan(q, r, m, same), plain_plan)),
                 f"K1 {name}: the prep kernels' plan equals the plain plan")
+        else:
+            lanes = geometry.knn_lanes(q.shape[0], q.shape[1])
         (bound_ms, bound_by), (brute_ms, _), n_bytes, pairs = knn_bounds(q, r, k, m)
         rows.append({"case": name, "kernel": "pruned" if pruned else "brute",
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "brute_bound_ms": brute_ms,
-                     "visited_share": share, "most_chunks_a_tile": most})
-        print(f"  K1 {name} ({rows[-1]['kernel']}): kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, visited {share:.4f} of the pairs (a tile "
-              f"{most} chunks at most), bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} bytes, M*k pairs x 8 "
-              f"flop), brute-force bound {brute_ms:.4f} ms ({pairs:.3e} pairs)")
+                     "ms": kernel_ms, "call_ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "brute_bound_ms": brute_ms,
+                     "lanes": lanes, "visited_share": share, "most_chunks_a_tile": most})
+        taken = (f"pruned, visited {share:.4f} of the pairs (a tile {most} chunks at most)"
+                 if pruned else f"brute force, {lanes} lanes a query")
+        print(f"  K1 {name} ({taken}): kernel {kernel_ms:.4f} ms, a call {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{n_bytes:.3e} bytes, M*k pairs x 8 flop), brute-force bound "
+              f"{brute_ms:.4f} ms ({pairs:.3e} pairs)")
     result = {"rows": rows, "max_abs_err": worst}
-    for kind, case in (("pruned", "self k=16"), ("brute", f"sparse k=16 {N_MAIN // 4}->"
-                                                           f"{N_MAIN // 32} masked")):
+    for kind, case in (("pruned", "self k=16"), ("brute", "serve interp 16384->4096 k=3 B=1")):
         row = next(row for row in rows if row["case"] == case)
         expect(row["kernel"] == kind, f"K1 {case} takes the {kind} kernel")
-        result[kind] = dict(row, shape=f"{case}, B=2")
+        result[kind] = dict(row, shape=case if kind == "brute" else f"{case}, B=2")
     return result
 
 
@@ -426,18 +510,38 @@ def check_fps(dev, rng):
         return sampling.blocked_farthest_point_sampling(
             coord, N // 4, mask, max_group_steps=64)
 
-    idx, valid = blocked()
+    # the windows the blocked call hands K2 (B x 256 sets of 256 sorted
+    # points, 64 picks each), caught on their way in
+    windows, fps_sets = [], sampling.fps_sets
+
+    def catch(xyz, mask, m):
+        windows.append((xyz, mask, m))
+        return fps_sets(xyz, mask, m)
+
+    sampling.fps_sets = catch
+    try:
+        idx, valid = blocked()
+    finally:
+        sampling.fps_sets = fps_sets
     with _cuda.plain_versions():
         pidx, pvalid = blocked()
     worst = max(worst, int((idx - pidx).abs().max()))
     expect(torch.equal(idx, pidx) and torch.equal(valid, pvalid),
            f"K2 blocked N={N} m={N // 4} ({N // 256} windows x 64): "
            "indices equal")
-    ms = cuda_ms(blocked, 5)
+    expect(len(windows) == 1, "the blocked call hands K2 one batch of windows")
+    wxyz, wmask, wm = windows[0]
+    # K2 alone on those windows (a CUDA graph of calls: the kernel's own
+    # time), and the whole blocked call (morton sort, gathers, duplicate
+    # flags and K2) back to back
+    ms = graph_ms(lambda: sampling.fps_sets(wxyz, wmask, wm), 5)
+    wrapper_ms = cuda_ms(blocked, 5)
     with _cuda.plain_versions():
-        plain_ms = cuda_ms(blocked, 2)
+        plain_ms = cuda_ms(lambda: sampling.fps_sets(wxyz, wmask, wm), 2)
     rows.append((f"blocked N={N} m={N // 4}", ms, plain_ms))
-    print(f"  K2 blocked N={N} m={N // 4}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    print(f"  K2 blocked N={N} m={N // 4}: kernel {ms:.4f} ms on its {wxyz.shape[0]} windows "
+          f"of {wxyz.shape[1]} points x {wm} picks, plain {plain_ms:.3f} ms; the blocked "
+          f"call {wrapper_ms:.3f} ms")
     # bound of the blocked case: each of the 64 rounds of a window scans its
     # 256 points once (8 flop a distance, a min and a compare); coords and
     # mask read once, m indices and flags written
@@ -447,8 +551,9 @@ def check_fps(dev, rng):
     print(f"  K2 blocked bound: {n_flops:.3e} flop, {n_bytes:.3e} bytes "
           f"-> {bound_ms:.5f} ms ({bound_by}); the 64 rounds are sequential")
     return {"max_abs_err": float(worst), "ms": rows[1][1], "plain_ms": rows[1][2],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": f"blocked, B=2 x N={N}, m={N // 4}", "rows": rows}
+            "wrapper_ms": wrapper_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": f"blocked, B=2 x N={N}, m={N // 4}: {wxyz.shape[0]} windows x {wm}",
+            "rows": rows}
 
 
 def attention_inputs(dev, rng, N, C, K, drop=0.0, grad=False, valid=None):
@@ -1556,6 +1661,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,
                         "shape": r["shape"]})
+        if "wrapper_ms" in r:
+            kernels[-1]["wrapper_ms"] = r["wrapper_ms"]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

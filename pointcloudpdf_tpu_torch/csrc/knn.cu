@@ -10,14 +10,57 @@
 // Two kernels, chosen by the size of the ref set (ops/geometry.py,
 // KNN_PRUNE_MIN_REFS):
 //
-// knn_kernel, brute force, for small sets.  Every query against every ref,
-// N*M distance evaluations over 16*N bytes of coordinates: bound by
-// operations.  One thread per query keeps its sorted top-K_MAX in registers
-// (K_MAX is the power of two at or above k and a template parameter, so the
-// insertion network unrolls into register moves; the first k of the sorted
-// K_MAX are the top-k); the block stages tiles of refs through shared
-// memory.  Refs are scanned in index order and a candidate displaces an
-// entry only when strictly nearer.
+// knn_brute_kernel, brute force, for small sets.  Every query against every
+// valid ref: N*M distance evaluations over 16*N bytes of coordinates, bound
+// by operations (8 f32 a pair).  What held the one-thread-a-query kernel
+// before it far under that bound was the layout, not the arithmetic: at
+// serving's B = 1 a few thousand queries made a few dozen blocks of 4
+// warps on a 132-SM card, each thread walking every ref through a chain of
+// dependent loads.  Here:
+// - a group of G lanes (a power of two, 1 to 32, inside one warp) serves a
+//   query, lane l taking the compacted refs j = l (mod G).  The host
+//   (pcpdf_knn_lanes) takes the fewest lanes that give the grid
+//   kLaneWarps = 4 warps an SM (on an H100, 16,896 threads): G = 8 at
+//   serving's 4,096 queries, 32 at 1,024 and 256, 2 at 16,384, 1 at the
+//   train step's B = 16.  Each lane more splits a query's scan further but
+//   adds a list to fill and to merge; the lane sweep of
+//   tools/knn_compare_torch.py (PERF.md) put the best count at 2-8 warps
+//   an SM at every phase-3 shape;
+// - a block (kBruteThreads / G queries of one sample) compacts the sample's
+//   valid refs into shared memory once, in index order, as (x, y, z,
+//   original index as int bits), by a block-wide prefix count over the mask:
+//   masked refs cost nothing after that, and the lanes of a group read
+//   consecutive float4s.  Sets above kDirectRefs points stream through in
+//   tiles of kTileRefs, the next tile's coordinates copied in by cp.async
+//   while the lanes scan the current one;
+// - a lane forms kUnroll distances, then their gates: it keeps its own
+//   top-K_MAX in registers, sorted by (dist2, index) (K_MAX the power of
+//   two at or above k, a template parameter, so the insertion network
+//   unrolls into selects), and a candidate passes only when it comes
+//   before its K_MAX-th and is not farther than tau, the group's gate:
+//   the r-th least over the group's lanes of each lane's m-th distance
+//   (m = min(k, ceil(2k / G)), r = ceil(k / m), a bitonic sort across the
+//   group).  r lanes hold m refs each at or below tau, so a ref beyond it
+//   cannot be among the k nearest; one at tau may still win on its index;
+// - what bounds a lane is not the distances but the insertions and the
+//   latency of each step: a sorted insert costs ~8 instructions a slot of
+//   the list, and a warp whose lanes insert at different steps pays each
+//   one.  So a candidate that passes goes to the thread's queue in shared
+//   memory (kQueue slots), and the warp inserts all its queues at once when
+//   one of them might overflow, then renews tau (the lists change only
+//   there).  A warp visits its steps of kUnroll * G refs from a home step
+//   (where its first query sits, by its share of the queries) in strides
+//   coprime with their count: sampled sets come in z-order, and a scan in
+//   that order draws near a query step by step, each nearer ref one more
+//   insertion.  The step's loads are issued a step ahead.  With two to
+//   four warps a scheduler at the main path's shapes, a step is bound by
+//   its latency, not by issue, and at k = 16 the flushes take about half
+//   of a warp's scan (tools/knn_brute_clocks.py counts both);
+// - the k results come from k rounds of a group-wide minimum of the lists'
+//   heads by (dist2, index) (__shfl_xor_sync), the lane holding the winner
+//   popping it: the k least (dist2, index) pairs, whatever the order of
+//   the visits, so the lower index wins an exact tie, as it did in the
+//   one-thread-a-query kernel this one replaces.
 //
 // knn_kernel_pruned, the TPU kernel's algorithm made exact, for large sets.
 // Brute force spends its time on pairs that cannot win: a query's k nearest
@@ -59,90 +102,383 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;  // refs staged per shared-memory tile
+constexpr unsigned kFull = 0xffffffffu;
 
+// ---------------------------------------------------------------------------
+// the brute-force kernel
+
+constexpr int kBruteThreads = 256;  // a block: kBruteThreads / G queries
+constexpr int kBruteWarps = kBruteThreads / 32;
+constexpr int kLaneWarps = 4;       // warps an SM the lane rule aims at
+constexpr int kCompactRefs = 4;     // consecutive refs a thread compacts a pass
+constexpr int kUnroll = 4;          // distances a lane forms before their gates
+constexpr int kQueue = 8;           // queued candidates a thread (shared memory)
+constexpr int kDirectRefs = 12288;  // sets up to this many refs are staged whole
+constexpr int kTileRefs = 4096;     // larger ones stream through in tiles
+constexpr int kPadRefs = kUnroll * 32;  // room for the sentinels of a last step
+constexpr size_t kQueueSmem = (size_t)kQueue * kBruteThreads * sizeof(float2);
+constexpr size_t kDirectSmem = kQueueSmem + (size_t)(kDirectRefs + kPadRefs) * sizeof(float4);
+constexpr size_t kTiledSmem = kQueueSmem + (size_t)(kTileRefs + kPadRefs) * sizeof(float4) +
+                              (size_t)kTileRefs * 2 * 3 * sizeof(float);
+
+// Appends the valid refs of [t0, t1) to stage[n..] in index order, as (x,
+// y, z, index as int bits); ``xyz`` starts at ref t0's coordinates (device
+// or shared memory), ``mask`` is the sample's.  A pass takes kCompactRefs
+// consecutive refs a thread, a warp scan of their counts and a block scan
+// of the warps' totals; ``sums`` (2 x kBruteWarps) alternates between
+// passes, so one barrier a pass.  Returns the new count to every thread;
+// the caller synchronises before reading ``stage``.
+__device__ __forceinline__ int compact_refs(const float* xyz, const uint8_t* __restrict__ mask,
+                            int t0, int t1, float4* stage, int n, int* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* part = sums;
+  for (int c0 = t0; c0 < t1; c0 += kBruteThreads * kCompactRefs) {
+    const int j0 = c0 + threadIdx.x * kCompactRefs;
+    bool valid[kCompactRefs];
+    float p[kCompactRefs][3];
+    int cnt = 0;
+#pragma unroll
+    for (int u = 0; u < kCompactRefs; ++u) {
+      const int j = j0 + u;
+      valid[u] = j < t1 && mask[j];
+      if (valid[u]) {
+        const float* s = xyz + (size_t)(j - t0) * 3;
+        p[u][0] = s[0];
+        p[u][1] = s[1];
+        p[u][2] = s[2];
+      }
+      cnt += valid[u];
+    }
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += o;
+    }
+    if (lane == 31) part[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kBruteWarps; ++w) {
+      const int s = part[w];
+      before += w < warp ? s : 0;
+      total += s;
+    }
+    int pos = n + before + incl - cnt;
+#pragma unroll
+    for (int u = 0; u < kCompactRefs; ++u) {
+      if (valid[u]) stage[pos++] = make_float4(p[u][0], p[u][1], p[u][2], __int_as_float(j0 + u));
+    }
+    n += total;
+    part = part == sums ? sums + kBruteWarps : sums;
+  }
+  return n;
+}
+
+// A list entry: (dist2, index) as one 64-bit key, the distance's bits
+// above the index's.  A distance is +0, positive or +inf, and such floats'
+// bits order as their values do, so keys order as (dist2, index) pairs:
+// one 64-bit compare keeps the lower index first on an exact tie.  An
+// empty slot is (+inf, -1), after every candidate.
+using Key = unsigned long long;
+constexpr Key kEmptyKey = 0x7f800000ffffffffull;
+
+__device__ __forceinline__ Key make_key(float d, int j) {
+  return ((Key)__float_as_uint(d) << 32) | (unsigned)j;
+}
+
+__device__ __forceinline__ float key_dist(Key key) {
+  return __uint_as_float((uint32_t)(key >> 32));
+}
+
+__device__ __forceinline__ int key_index(Key key) { return (int)(uint32_t)key; }
+
+// the candidate (d, j) into the lane's sorted list, when it comes before
+// the list's last entry and is not farther than the group's gate ``tau``:
+// slot s takes slot s-1's entry where the candidate comes before both, the
+// candidate where it comes before s only
 template <int K_MAX>
-__global__ void __launch_bounds__(kThreads)
-knn_kernel(const float* __restrict__ query, const float* __restrict__ ref,
-           const uint8_t* __restrict__ ref_mask, int M, int N, int k,
-           int* __restrict__ idx_out, float* __restrict__ dist_out) {
-  __shared__ float4 tile[kTile];
-  const int b = blockIdx.y;
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = q < M;
-
-  const float* qp = query + ((size_t)b * M + (active ? q : 0)) * 3;
-  const float qx = qp[0], qy = qp[1], qz = qp[2];
-
-  float bd[K_MAX];
-  int bi[K_MAX];
+__device__ __forceinline__ void insert(float d, int j, float tau, Key (&key)[K_MAX]) {
+  const Key c = make_key(d, j);
+  if (d > tau || !(c < key[K_MAX - 1])) return;
 #pragma unroll
-  for (int s = 0; s < K_MAX; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = -1;
-  }
+  for (int s = K_MAX - 1; s > 0; --s) key[s] = c < key[s - 1] ? key[s - 1] : min(c, key[s]);
+  key[0] = min(c, key[0]);
+}
 
-  const float* rb = ref + (size_t)b * N * 3;
-  const uint8_t* mb = ref_mask + (size_t)b * N;
-  for (int t0 = 0; t0 < N; t0 += kTile) {
-    const int tn = min(kTile, N - t0);
-    __syncthreads();
-    for (int j = threadIdx.x; j < tn; j += kThreads) {
-      const float* r = rb + (size_t)(t0 + j) * 3;
-      tile[j] = make_float4(r[0], r[1], r[2], mb[t0 + j] ? 1.0f : 0.0f);
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < tn; ++j) {
-      const float4 r = tile[j];
-      if (r.w == 0.0f) continue;
-      const float d = pcpdf::dist2(r.x, r.y, r.z, qx, qy, qz);
-      if (!(d < bd[K_MAX - 1])) continue;
-      const int jj = t0 + j;
-      // insertion: shift every entry that is strictly farther one slot
-      // down, then drop the candidate into the hole
-      bool placed = false;
+// the group's gate, after its lists changed: with m = min(k, ceil(2k / G))
+// and r = ceil(k / m) (r <= G), the r-th least over the group's lanes of
+// each lane's m-th distance (a bitonic sort across the group).  r lanes
+// hold m refs each at or below it, r * m >= k refs in all, so a ref
+// farther than it cannot be among the k nearest.
+template <int K_MAX>
+__device__ __forceinline__ float group_gate(const Key (&key)[K_MAX], int m, int r,
+                                            int G, int l) {
+  // the m-th distance as the least at slots m-1 on (the list is sorted): a
+  // chain of selects of one slot would be compiled into an indexed load,
+  // and that moves the whole list out of registers into local memory
+  float v = INFINITY;
 #pragma unroll
-      for (int s = K_MAX - 1; s > 0; --s) {
-        if (!placed) {
-          if (d < bd[s - 1]) {
-            bd[s] = bd[s - 1];
-            bi[s] = bi[s - 1];
-          } else {
-            bd[s] = d;
-            bi[s] = jj;
-            placed = true;
-          }
-        }
-      }
-      if (!placed) {
-        bd[0] = d;
-        bi[0] = jj;
-      }
+  for (int s = 0; s < K_MAX; ++s) v = fminf(v, s >= m - 1 ? key_dist(key[s]) : INFINITY);
+  for (int size = 2; size <= G; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float o = __shfl_xor_sync(kFull, v, stride);
+      v = ((l & stride) == 0) == ((l & size) == 0) ? fminf(v, o) : fmaxf(v, o);
     }
   }
-  if (!active) return;
-  // slots past the valid refs keep +inf and repeat the nearest index (or
-  // 0 when there is none), so every index is a safe gather row
-  const int first = bi[0] >= 0 ? bi[0] : 0;
-  int* io = idx_out + ((size_t)b * M + q) * k;
-  float* dout = dist_out + ((size_t)b * M + q) * k;
+  return __shfl_sync(kFull, v, (threadIdx.x & 31) - l + r - 1);
+}
+
+// the least float above a distance (+inf stays): d <= x is d < next_up(x)
+__device__ __forceinline__ float next_up(float tau) {
+  return tau < INFINITY ? __int_as_float(__float_as_int(tau) + 1) : INFINITY;
+}
+
+// the queued candidates of this thread into its list, in the order they came
+template <int K_MAX>
+__device__ __forceinline__ void flush(const float2* queue, int& qn, float tau,
+                                      Key (&key)[K_MAX]) {
+  float2 e = queue[0];
+  for (int t = 0; t < qn; ++t) {
+    // the next entry in flight during this insert
+    const float2 next = queue[min(t + 1, kQueue - 1) * kBruteThreads];
+    insert<K_MAX>(e.x, __float_as_int(e.y), tau, key);
+    e = next;
+  }
+  qn = 0;
+}
+
+// the step a warp visits second, third, ...: a stride P coprime with the
+// step count (so every step comes once) near its golden section, which
+// sends consecutive visits far apart along the refs' order
+__device__ __forceinline__ int visit_stride(int steps) {
+  int p = max(1, (int)(0.618034f * (float)steps));
+  for (;; --p) {
+    int a = steps, b = p;
+    while (b != 0) {
+      const int c = a % b;
+      a = b;
+      b = c;
+    }
+    if (a == 1) return p;
+  }
+}
+
+// lane l's scan of the staged refs j = l (mod G), padded with far
+// sentinels to whole steps of kUnroll * G refs.  The warp visits the steps
+// from ``home`` on in strides of visit_stride: refs that come in spatial
+// order (the z-order of a sampled set) would otherwise draw near a query
+// step by step, each nearer ref an insertion; the home step, where the
+// warp's first query sits in the same order, fills the lists with near
+// refs first.  A candidate not after the lane's last entry and not farther
+// than the group's gate goes to the thread's queue in shared memory (slot
+// t at queue[t * kBruteThreads]); the warp inserts its queues when one of
+// them might overflow, so an insertion costs the warp once for all its
+// lanes instead of once a lane, and then renews the group's gate.  The
+// step count is the same for every lane of the block, so the warp's votes
+// and the group's shuffles are converged.
+template <int K_MAX>
+__device__ __forceinline__ void scan_refs(const float4* stage, int n, int l, int G, int m,
+                                          int r, int home_q, int M, float qx, float qy,
+                                          float qz, Key (&key)[K_MAX], float& tau,
+                                          float2* queue, int& qn) {
+  static_assert(kUnroll == 4, "the step's least distance below takes four");
+  const int stride = kUnroll * G;
+  const int steps = (n + stride - 1) / stride;
+  if (steps == 0) return;
+  const int span = steps * stride, hop = visit_stride(steps) * stride;
+  const float4* lane_refs = stage + l;
+  int at = min(steps - 1, (int)((long long)home_q * steps / M)) * stride;
+  float gate = next_up(fminf(key_dist(key[K_MAX - 1]), tau));
+  // software pipelined: the next step's refs are loaded before this step's
+  // distances, so their latency is not on the loop's critical path (the
+  // loads past the last step wrap round to a visited one, never out)
+  float4 next[kUnroll];
 #pragma unroll
-  for (int s = 0; s < K_MAX; ++s) {
-    if (s < k) {
-      io[s] = bi[s] >= 0 ? bi[s] : first;
-      dout[s] = bd[s];
+  for (int u = 0; u < kUnroll; ++u) next[u] = lane_refs[at + u * G];
+  for (int s = 0; s < steps; ++s) {
+    float4 e[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) e[u] = next[u];
+    at = at + hop < span ? at + hop : at + hop - span;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) next[u] = lane_refs[at + u * G];
+    float d[kUnroll];
+    int id[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      d[u] = pcpdf::dist2(e[u].x, e[u].y, e[u].z, qx, qy, qz);
+      id[u] = __float_as_int(e[u].w);
+    }
+    const float least = fminf(fminf(d[0], d[1]), fminf(d[2], d[3]));
+    if (!__any_sync(kFull, least < gate)) continue;
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (d[u] < gate) {
+        queue[qn * kBruteThreads] = make_float2(d[u], __int_as_float(id[u]));
+        ++qn;
+      }
+    }
+    if (__any_sync(kFull, qn > kQueue - kUnroll)) {
+      flush<K_MAX>(queue, qn, tau, key);
+      tau = group_gate<K_MAX>(key, m, r, G, l);
+      gate = next_up(fminf(key_dist(key[K_MAX - 1]), tau));
     }
   }
 }
 
+// far sentinels (never nearer than any gate) from stage[n] up to whole steps
+__device__ __forceinline__ void pad_refs(float4* stage, int n, int G) {
+  const int end = (n + kUnroll * G - 1) / (kUnroll * G) * (kUnroll * G);
+  for (int j = n + threadIdx.x; j < end; j += kBruteThreads)
+    stage[j] = make_float4(INFINITY, INFINITY, INFINITY, 0.0f);
+}
+
+// (minimum blocks 1: without it ptxas held K_MAX = 4 to 80 registers and
+// spilled; with it no instantiation spills, and shared memory allows two
+// blocks an SM at the main path's sets either way)
 template <int K_MAX>
-void launch(const float* query, const float* ref, const uint8_t* mask, int B,
-            int M, int N, int k, int* idx, float* dist, cudaStream_t stream) {
-  dim3 grid((M + kThreads - 1) / kThreads, B);
-  knn_kernel<K_MAX><<<grid, kThreads, 0, stream>>>(query, ref, mask, M, N, k,
-                                                   idx, dist);
+__global__ void __launch_bounds__(kBruteThreads, 1)
+knn_brute_kernel(const float* __restrict__ query, const float* __restrict__ ref,
+                 const uint8_t* __restrict__ ref_mask, int M, int N, int k, int G,
+                 int* __restrict__ idx_out, float* __restrict__ dist_out) {
+  extern __shared__ float4 smem[];
+  __shared__ int sums[2 * kBruteWarps];
+  const int b = blockIdx.y;
+  const int l = threadIdx.x & (G - 1);
+  const int q = blockIdx.x * (kBruteThreads / G) + threadIdx.x / G;
+  const bool active = q < M;  // the others scan (the group's shuffles) but write nothing
+  const float* qp = query + ((size_t)b * M + (active ? q : M - 1)) * 3;
+  const float qx = qp[0], qy = qp[1], qz = qp[2];
+  const int m = min(k, (2 * k + G - 1) / G), r = (k + m - 1) / m;  // group_gate
+  // the warp's first query: its place among the queries is the warp's home
+  // among the refs' steps (scan_refs)
+  const int home_q = blockIdx.x * (kBruteThreads / G) + (threadIdx.x & ~31) / G;
+
+  Key key[K_MAX];
+#pragma unroll
+  for (int s = 0; s < K_MAX; ++s) key[s] = kEmptyKey;
+  float tau = INFINITY;
+  // dynamic shared memory: the threads' queues, then the staged refs
+  float2* queue = reinterpret_cast<float2*>(smem) + threadIdx.x;
+  float4* stage = smem + kQueueSmem / sizeof(float4);
+  int qn = 0;
+  const float* rb = ref + (size_t)b * N * 3;
+  const uint8_t* mb = ref_mask + (size_t)b * N;
+  if (N <= kDirectRefs) {
+    const int n = compact_refs(rb, mb, 0, N, stage, 0, sums);
+    pad_refs(stage, n, G);
+    __syncthreads();
+    scan_refs<K_MAX>(stage, n, l, G, m, r, home_q, M, qx, qy, qz, key, tau, queue, qn);
+  } else {
+    // tiles of kTileRefs: tile t + 1's coordinates come in (cp.async, two
+    // buffers after the staged float4s) while tile t is compacted and scanned
+    float* raw = reinterpret_cast<float*>(stage + kTileRefs + kPadRefs);
+    const int tiles = (N + kTileRefs - 1) / kTileRefs;
+    auto fetch = [&](int t) {
+      const int t0 = t * kTileRefs, len = 3 * (min(N, t0 + kTileRefs) - t0);
+      float* dst = raw + (t & 1) * 3 * kTileRefs;
+      for (int e = threadIdx.x; e < len; e += kBruteThreads)
+        pcpdf::cp_async4(reinterpret_cast<int*>(dst + e),
+                         reinterpret_cast<const int*>(rb + (size_t)t0 * 3 + e));
+      pcpdf::cp_async_commit();
+    };
+    fetch(0);
+    for (int t = 0; t < tiles; ++t) {
+      if (t + 1 < tiles) {
+        fetch(t + 1);
+        pcpdf::cp_async_wait<1>();
+      } else {
+        pcpdf::cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int t0 = t * kTileRefs;
+      const int n = compact_refs(raw + (t & 1) * 3 * kTileRefs, mb, t0,
+                                 min(N, t0 + kTileRefs), stage, 0, sums);
+      pad_refs(stage, n, G);
+      __syncthreads();
+      scan_refs<K_MAX>(stage, n, l, G, m, r, home_q, M, qx, qy, qz, key, tau, queue, qn);
+      __syncthreads();  // the staged refs and this tile's buffer are free again
+    }
+  }
+  flush<K_MAX>(queue, qn, tau, key);
+
+  // slots past the valid refs hold +inf and repeat the nearest index (or 0
+  // when there is none), so every index is a safe gather row
+  int* io = idx_out + ((size_t)b * M + q) * k;
+  float* dout = dist_out + ((size_t)b * M + q) * k;
+  if (G == 1) {
+    if (!active) return;
+    const int first = key_index(key[0]) >= 0 ? key_index(key[0]) : 0;
+#pragma unroll
+    for (int s = 0; s < K_MAX; ++s) {
+      if (s < k) {
+        io[s] = key_index(key[s]) >= 0 ? key_index(key[s]) : first;
+        dout[s] = key_dist(key[s]);
+      }
+    }
+    return;
+  }
+  // k rounds of the group's least head; real entries have distinct
+  // indices, so one lane holds the winner and pops it
+  int first = 0;
+  for (int round = 0; round < k; ++round) {
+    Key least = key[0];
+    for (int off = 1; off < G; off <<= 1) least = min(least, __shfl_xor_sync(kFull, least, off));
+    const bool found = key_dist(least) < INFINITY;
+    if (round == 0 && found) first = key_index(least);
+    if (active && l == (round & (G - 1))) {
+      io[round] = found ? key_index(least) : first;
+      dout[round] = key_dist(least);
+    }
+    if (found && key[0] == least) {
+#pragma unroll
+      for (int s = 0; s < K_MAX - 1; ++s) key[s] = key[s + 1];
+      key[K_MAX - 1] = kEmptyKey;
+    }
+  }
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    count = count > 0 ? count : 132;
+  }
+  return count;
+}
+
+// the lanes a query: the fewest (a power of two, 1 to 32) that give the
+// grid kLaneWarps warps for every SM
+int brute_lanes(int B, int M) {
+  const long long want = (long long)sm_count() * kLaneWarps * 32;
+  int G = 1;
+  while (G < 32 && (long long)B * M * G < want) G <<= 1;
+  return G;
+}
+
+template <int K_MAX>
+cudaError_t launch_brute(const float* query, const float* ref, const uint8_t* mask,
+                         int B, int M, int N, int k, int G, int* idx, float* dist,
+                         cudaStream_t stream) {
+  static bool large_smem = false;  // once an instantiation
+  if (!large_smem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_brute_kernel<K_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(kDirectSmem > kTiledSmem ? kDirectSmem : kTiledSmem));
+    if (err != cudaSuccess) return err;
+    large_smem = true;
+  }
+  const size_t smem = N <= kDirectRefs
+                          ? kQueueSmem + (size_t)(N + kPadRefs) * sizeof(float4)
+                          : kTiledSmem;
+  const int queries = kBruteThreads / G;
+  dim3 grid((M + queries - 1) / queries, B);
+  knn_brute_kernel<K_MAX><<<grid, kBruteThreads, smem, stream>>>(query, ref, mask, M, N,
+                                                                 k, G, idx, dist);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -154,7 +490,6 @@ constexpr int kMaxChunk = 256;   // largest chunk of sorted refs (R)
 constexpr int kWarp = 32;        // a tile of sorted queries: one warp
 constexpr int kPrunedWarps = 4;  // warps (tiles) a block of the pruned kernel
 constexpr int kMortonMax = 1023;    // 10 bits an axis
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void box_warp_reduce(float (&box)[6]) {
 #pragma unroll
@@ -612,26 +947,38 @@ cudaError_t launch_pruned(const float* query, const int64_t* query_order,
 
 }  // namespace
 
-// query (B, M, 3) f32, ref (B, N, 3) f32, ref_mask (B, N) u8, 1 <= k <= N,
-// k <= 64 -> idx (B, M, k) i32, dist2 (B, M, k) f32, ascending.
-extern "C" int pcpdf_knn(const void* query, const void* ref,
-                         const void* ref_mask, int B, int M, int N, int k,
-                         void* idx, void* dist2, void* stream) {
+// The brute-force search with G lanes a query (a power of two, 1 to 32;
+// 0: the host's rule, pcpdf_knn_lanes): as pcpdf_knn.
+extern "C" int pcpdf_knn_brute(const void* query, const void* ref, const void* ref_mask,
+                               int B, int M, int N, int k, int lanes, void* idx,
+                               void* dist2, void* stream) {
   if (k < 1 || k > 64 || k > N) return (int)cudaErrorInvalidValue;
+  if (lanes < 0 || lanes > 32 || (lanes & (lanes - 1)) != 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || M == 0) return 0;
+  const int G = lanes != 0 ? lanes : brute_lanes(B, M);
   auto q = static_cast<const float*>(query);
   auto r = static_cast<const float*>(ref);
   auto m = static_cast<const uint8_t*>(ref_mask);
   auto i = static_cast<int*>(idx);
   auto d = static_cast<float*>(dist2);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k <= 4) launch<4>(q, r, m, B, M, N, k, i, d, s);
-  else if (k <= 8) launch<8>(q, r, m, B, M, N, k, i, d, s);
-  else if (k <= 16) launch<16>(q, r, m, B, M, N, k, i, d, s);
-  else if (k <= 32) launch<32>(q, r, m, B, M, N, k, i, d, s);
-  else launch<64>(q, r, m, B, M, N, k, i, d, s);
-  return (int)cudaGetLastError();
+  if (k <= 4) return (int)launch_brute<4>(q, r, m, B, M, N, k, G, i, d, s);
+  if (k <= 8) return (int)launch_brute<8>(q, r, m, B, M, N, k, G, i, d, s);
+  if (k <= 16) return (int)launch_brute<16>(q, r, m, B, M, N, k, G, i, d, s);
+  if (k <= 32) return (int)launch_brute<32>(q, r, m, B, M, N, k, G, i, d, s);
+  return (int)launch_brute<64>(q, r, m, B, M, N, k, G, i, d, s);
 }
+
+// query (B, M, 3) f32, ref (B, N, 3) f32, ref_mask (B, N) u8, 1 <= k <= N,
+// k <= 64 -> idx (B, M, k) i32, dist2 (B, M, k) f32, ascending.
+extern "C" int pcpdf_knn(const void* query, const void* ref,
+                         const void* ref_mask, int B, int M, int N, int k,
+                         void* idx, void* dist2, void* stream) {
+  return pcpdf_knn_brute(query, ref, ref_mask, B, M, N, k, 0, idx, dist2, stream);
+}
+
+// The lanes a query that pcpdf_knn takes for B samples of M queries.
+extern "C" int pcpdf_knn_lanes(int B, int M) { return brute_lanes(B, M); }
 
 // Prep, one side: xyz (B, N, 3) f32, mask (B, N) u8 or NULL (all valid),
 // part (B, 32, 8) f32 scratch -> keys (B, N) i64 (b << 32 | the code of

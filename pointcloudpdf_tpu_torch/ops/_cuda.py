@@ -46,6 +46,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # query, ref, ref_mask, B, M, N, k, idx, dist2, stream
     "pcpdf_knn": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # query, ref, ref_mask, B, M, N, k, lanes (0: the rule), idx, dist2, stream
+    "pcpdf_knn_brute": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    # B, M -> the lanes a query of the brute-force kernel
+    "pcpdf_knn_lanes": [_I, _I],
     # xyz, mask (or NULL), B, N, part, keys, n_valid (or NULL), stream
     "pcpdf_knn_codes": [_P, _P, _I, _I, _P, _P, _P, _P],
     # ref, ref_mask, order, B, N, R, sorted, boxes, sub_boxes, stream

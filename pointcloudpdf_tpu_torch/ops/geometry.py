@@ -83,18 +83,29 @@ def _kernel_inputs(query, ref, k, ref_mask):
     return query, ref, ref_mask, idx, dist2
 
 
-def knn_brute_cuda(query, ref, k, ref_mask):
-    """K1's brute-force kernel: every query against every ref."""
+def knn_brute_cuda(query, ref, k, ref_mask, lanes=0):
+    """K1's brute-force kernel: every query against every ref, ``lanes``
+    lanes a query (a power of two up to 32; 0: ``knn_lanes``'s choice)."""
     global KNN_LAUNCHES, KNN_BRUTE_LAUNCHES
+    if lanes not in (0, 1, 2, 4, 8, 16, 32):
+        raise ValueError(f"knn brute-force kernel takes 0 or 1-32 lanes (a power of two), "
+                         f"got {lanes}")
     query, ref, ref_mask, idx, dist2 = _kernel_inputs(query, ref, k, ref_mask)
     B, M, _ = query.shape
-    err = _cuda.library().pcpdf_knn(
+    err = _cuda.library().pcpdf_knn_brute(
         query.data_ptr(), ref.data_ptr(), ref_mask.data_ptr(), B, M, ref.shape[1],
-        k, idx.data_ptr(), dist2.data_ptr(), ctypes.c_void_p(_cuda.stream_of(query)))
-    _cuda.check(err, "pcpdf_knn")
+        k, lanes, idx.data_ptr(), dist2.data_ptr(), ctypes.c_void_p(_cuda.stream_of(query)))
+    _cuda.check(err, "pcpdf_knn_brute")
     KNN_LAUNCHES += 1
     KNN_BRUTE_LAUNCHES += 1
     return idx, dist2
+
+
+def knn_lanes(B: int, M: int) -> int:
+    """The lanes a query the brute-force kernel takes for B samples of M
+    queries on this card: the fewest (a power of two, 1 to 32) that give
+    its grid 4 warps an SM (csrc/knn.cu, ``brute_lanes``)."""
+    return int(_cuda.library().pcpdf_knn_lanes(B, M))
 
 
 def knn_chunk(n_refs: int) -> int:

@@ -173,6 +173,72 @@ def test_knn_pruned_visits(dev):
     _assert_knn_matches_plain(r, r, 8, m, idx, d2)
 
 
+def _brute_edge_cases(dev):
+    """The brute-force kernel's edges: (name, query, ref, k, ref_mask)."""
+    r, m = _clustered_with_duplicates(26, 3, 2048, [2048, 0, 5], dev)
+    dup = r[:1, torch.randperm(4096, generator=torch.Generator().manual_seed(0)) % 512]
+    dup_m = torch.ones((1, 4096), dtype=torch.bool, device=dev)
+    wide, wide_m = _clustered_with_duplicates(27, 1, 4096, [4096], dev)
+    q = wide[:, :700].contiguous()
+    return [("all-masked sample, 5 valid, k=16", r, r, 16, m),
+            ("duplicates x8, k=16", dup.contiguous(), dup.contiguous(), 16, dup_m),
+            ("k=32", wide, wide, 32, wide_m),
+            ("k=64 cross", q, wide, 64, wide_m),
+            ("k=3 cross, partly masked", q, wide, 3,
+             wide_m & (torch.arange(4096, device=dev) % 3 > 0))]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_knn_brute_kernel_every_lane_count(dev, lanes):
+    """Every lane count the host rule can pick gives the plain version's
+    dist2 bit for bit and the same indices as one lane a query (the lower
+    index wins every exact tie), at the kernel's edges."""
+    for name, q, r, k, m in _brute_edge_cases(dev):
+        before = geometry.KNN_BRUTE_LAUNCHES
+        idx, d2 = geometry.knn_brute_cuda(q, r, k, m, lanes)
+        assert geometry.KNN_BRUTE_LAUNCHES == before + 1, name
+        _assert_knn_matches_plain(q, r, k, m, idx, d2)
+        idx1, d21 = geometry.knn_brute_cuda(q, r, k, m, 1)
+        assert torch.equal(d2, d21) and torch.equal(idx, idx1), name
+    # the all-masked sample: +inf and index 0 throughout; 5 valid refs: the
+    # slots past them repeat the nearest
+    name, q, r, k, m = _brute_edge_cases(dev)[0]
+    idx, d2 = geometry.knn_brute_cuda(q, r, k, m, lanes)
+    assert torch.isinf(d2[1]).all() and (idx[1] == 0).all()
+    assert torch.isinf(d2[2, :, 5:]).all()
+    assert torch.equal(idx[2, :, 5:], idx[2, :, :1].expand(-1, 11))
+
+
+def test_knn_lanes_rule(dev):
+    """The rule's lane count: a power of two from 1 to 32, never more for a
+    larger grid; 32 for one small sample, 1 for the train step's batch."""
+    picks = [geometry.knn_lanes(B, M) for B, M in ((1, 256), (1, 1024), (1, 4096), (1, 16384),
+                                                    (2, 16384), (16, 5120), (16, 20480))]
+    assert all(g in (1, 2, 4, 8, 16, 32) for g in picks)
+    assert picks == sorted(picks, reverse=True)
+    assert picks[0] == 32 and picks[-1] == 1
+
+
+@pytest.mark.parametrize("lanes", [0, 2, 16])
+def test_knn_brute_kernel_streams_large_sets(dev, lanes):
+    """Sets above what shared memory holds go through in tiles: masked
+    refs inside and across tiles, k = 16 and 3."""
+    r, m = _clustered_with_duplicates(28, 2, 30000, [30000, 21000], dev)
+    m = m & (torch.arange(30000, device=dev) % 5 > 0)
+    q = r[:, ::6].contiguous()
+    for k in (16, 3):
+        idx, d2 = geometry.knn_brute_cuda(q, r, k, m, lanes)
+        _assert_knn_matches_plain(q, r, k, m, idx, d2)
+
+
+def test_knn_brute_kernel_refuses_a_lane_count(dev):
+    r, m = _cloud(9, 1, 300, [300], dev)
+    with pytest.raises(ValueError):
+        geometry.knn_brute_cuda(r, r, 8, m, 3)
+    with pytest.raises(ValueError):
+        geometry.knn_brute_cuda(r, r, 65, m)
+
+
 @pytest.mark.parametrize("n,m", [(256, 64), (20000, 700)])
 def test_fps_kernel_matches_plain(dev, n, m):
     """Shared-memory sets (n <= 8192) and device-memory sets."""

@@ -11,10 +11,17 @@ import os
 import subprocess
 import time
 
-# a kernel's kind is the first whose keys its name holds
-K1 = "K1 kNN"
+# a kernel's kind is the first whose keys its name holds; K1 in three:
+# the brute-force kernel (K1a), the bound-pruned kernel (K1b) and its prep
+# (the prep kernels and the PyTorch sorts of the ``K1 prep`` range)
+K1_BRUTE, K1_PRUNED, K1_PREP = "K1a kNN brute force", "K1b kNN pruned", "K1b kNN prep"
+K1_KINDS = (K1_BRUTE, K1_PRUNED, K1_PREP)
 KINDS = (
-    (K1, ("knn_kernel", "knn_prep")),
+    (K1_PRUNED, ("knn_kernel_pruned",)),
+    # knn_kernel<K>: the one-thread-a-query brute-force kernel of earlier
+    # trees, profiled with these tools to compare against them
+    (K1_BRUTE, ("knn_brute_kernel", "knn_kernel<")),
+    (K1_PREP, ("knn_prep",)),
     ("K2 FPS", ("fps_",)),
     ("K4 backward", ("attn_bwd_kernel",)),
     ("K5 window attention", ("st_attention_kernel",)),
@@ -97,17 +104,18 @@ def profile_call(fn, host_ms, what, top=24):
     prep = range_kernels(prof, "K1 prep")
     for name, (us, n) in prep.items():
         k = kind_of(name)
-        if k != K1:
+        if k not in K1_KINDS:
             kinds[k] -= us / 1e3
             launches[k] -= n
-            kinds[K1] = kinds.get(K1, 0.0) + us / 1e3
-            launches[K1] = launches.get(K1, 0) + n
+            kinds[K1_PREP] = kinds.get(K1_PREP, 0.0) + us / 1e3
+            launches[K1_PREP] = launches.get(K1_PREP, 0) + n
     busy = sum(kinds.values())
     print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms over "
           f"{sum(launches.values())} kernels, idle share {1 - busy / wall_ms:.3f} "
           f"(profiled), {1 - busy / host_ms:.3f} against the unprofiled host clock; "
-          f"K1 includes {sum(v[0] for v in prep.values()) / 1e3:.3f} ms of PyTorch "
-          f"kernels in its prep ({sum(v[1] for v in prep.values())} launches)")
+          f"K1 {sum(kinds.get(k, 0.0) for k in K1_KINDS):.3f} ms in all, its prep "
+          f"including {sum(v[0] for v in prep.values()) / 1e3:.3f} ms of PyTorch kernels "
+          f"({sum(v[1] for v in prep.values())} launches)")
     # K7's parameter packing: host time of its ranges, device time of the
     # kernels launched inside them (counted in their kinds above)
     pack = range_kernels(prof, "K7 pack")
@@ -135,6 +143,32 @@ def profile_call(fn, host_ms, what, top=24):
             "k1_prep_torch_kernels": prep, "k7_pack": k7_pack,
             "top_kernels": [{"ms": device_us(ev) / 1e3, "count": ev.count,
                              "name": ev.key[:120]} for ev in ranked]}
+
+
+def knn_calls(fn):
+    """K1's calls in one run of ``fn``: {"kernel B=.. M=.. N=.. k=..": count}."""
+    from pointcloudpdf_tpu_torch.ops import geometry
+
+    calls = {}
+    brute, pruned = geometry.knn_brute_cuda, geometry.knn_pruned_cuda
+
+    def record(kind, launch):
+        def call(query, ref, k, *args, **kwargs):
+            key = (f"{kind} B={query.shape[0]} M={query.shape[1]} N={ref.shape[1]} "
+                   f"k={k}")
+            calls[key] = calls.get(key, 0) + 1
+            return launch(query, ref, k, *args, **kwargs)
+        return call
+
+    geometry.knn_brute_cuda = record("brute", brute)
+    geometry.knn_pruned_cuda = record("pruned", pruned)
+    try:
+        fn()
+    finally:
+        geometry.knn_brute_cuda, geometry.knn_pruned_cuda = brute, pruned
+    for key, n in sorted(calls.items()):
+        print(f"  K1 call {key}: {n}")
+    return calls
 
 
 def write_result(result, out):
@@ -229,7 +263,7 @@ def serving_forward_profile(config, tester, recognizer, iters):
               f"{plain_b[0]:.1f} ms; peak memory {result['peak_memory_gib']:.2f} GiB")
 
         chip_smoke.reset_launches()
-        forward()
+        result["knn_calls_a_forward"] = knn_calls(forward)
         counts = chip_smoke.read_launches()
         result["launches_a_forward"] = {k: v for k, v in counts.items()
                                         if not isinstance(v, tuple)}

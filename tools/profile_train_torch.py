@@ -26,7 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-from _profile_torch import card_line, profile_call, write_result  # noqa: E402
+from _profile_torch import card_line, knn_calls, profile_call, write_result  # noqa: E402
 
 
 def main():
@@ -112,6 +112,7 @@ def main():
               f"peak memory {result['peak_memory_gib']:.2f} GiB")
 
         result.update(profile_call(step, host_ms, "step", top=16))
+        result["knn_calls_a_step"] = knn_calls(step)
 
         # the pseudo-label pipeline: score pass, fetch, host graph stage
         va_before = va.ATTENTION_LAUNCHES
