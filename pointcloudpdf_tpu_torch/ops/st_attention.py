@@ -16,8 +16,12 @@ products, and every dot taken over the head's channels.  A query with no
 valid key comes out 0.  Tables are the ``(3, 2L, C)`` merged views of the
 ``(2L, H, head_dim, 3)`` parameters; ``None`` switches a term off.
 
-K5 (csrc/st_attention.cu) gathers the key rows and the table rows by index
-inside the kernel: the TPU kernel's gathered payload slab, its bf16 hi/lo
+K5 (csrc/st_attention.cu) gathers the key rows by index inside the kernel
+and keeps a head group's slices of the three tables in shared memory: the
+query term comes from a product of q with Tq, the value term from a
+histogram of the probabilities by bin times Tv, the key term pair by pair,
+and the softmax takes all of a query's logits at once (K <= 64 slots, 2L <=
+80 bins).  The TPU kernel's gathered payload slab, its bf16 hi/lo
 coordinate split, its one-hot table contractions and its query chunks all
 dodge that chip's gather cost and are not ported.  ``st_attention_plain``
 is the plain PyTorch version (gathers, indexed table rows, a masked
@@ -41,8 +45,10 @@ from . import _cuda
 from .geometry import divide_exact, gather_rows
 
 ST_ATTENTION_LAUNCHES = 0  # K5 launches since the last reset
-HEAD_DIM = 16              # the kernel reduces a head over a half-warp
+HEAD_DIM = 16              # csrc/st_attention.cu: 16 channels a head
 _WIDTHS = (32, 64, 96, 128, 192, 256, 384, 512)  # csrc/st_attention.cu
+MAX_SLOTS = 64             # key slots a query the kernel takes, at most
+MAX_BINS = 80              # table rows (2L) the kernel takes, at most
 
 
 def st_attention(q, k, v, coord, key_idx, key_mask,
@@ -72,6 +78,10 @@ def _st_attention_cuda(q, k, v, coord, key_idx, key_mask, tq, tk, tv,
     if C != num_heads * HEAD_DIM or C not in _WIDTHS:
         raise ValueError(f"st attention kernel takes head width {HEAD_DIM} "
                          f"and C in {_WIDTHS}, got C {C}, {num_heads} heads")
+    if key_idx.shape[-1] > MAX_SLOTS or not 1 <= num_bins <= MAX_BINS:
+        raise ValueError(f"st attention kernel takes at most {MAX_SLOTS} key "
+                         f"slots and 1 to {MAX_BINS} bins, got "
+                         f"{key_idx.shape[-1]} slots, {num_bins} bins")
     q, k, v, coord = (t.float().contiguous() for t in (q, k, v, coord))
     key_idx = key_idx.to(torch.int32).contiguous()
     key_mask = key_mask.to(torch.bool).contiguous()
@@ -111,10 +121,13 @@ def st_attention_bins(coord, key_idx, window_size: float, quant_size: float,
 
 def st_attention_plain(q, k, v, coord, key_idx, key_mask, tq, tk, tv,
                        num_heads, window_size, quant_size, num_bins):
-    """Plain PyTorch version of K5 over gathered (B, N, K, C) tensors."""
+    """Plain PyTorch version of K5 over gathered (B, N, K, C) tensors, in
+    float32 (float64 where q is: a reference to rounding noise); the bins
+    are the f32 ones either way."""
     # imported here: the models package imports this module
     from ..models.utils.structure import masked_softmax
 
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
     B, N, C = q.shape
     K = key_idx.shape[-1]
     H, hd = num_heads, C // num_heads
@@ -122,20 +135,20 @@ def st_attention_plain(q, k, v, coord, key_idx, key_mask, tq, tk, tv,
     def head_sum(x):                       # (B, N, K, C) -> (B, N, K, H)
         return x.reshape(B, N, K, H, hd).sum(-1)
 
-    qf = (q.float() * hd ** -0.5)[:, :, None, :]
-    k_g = gather_rows(k.float(), key_idx)
-    v_g = gather_rows(v.float(), key_idx)
+    qf = (q.to(dt) * hd ** -0.5)[:, :, None, :]
+    k_g = gather_rows(k.to(dt), key_idx)
+    v_g = gather_rows(v.to(dt), key_idx)
     bins = st_attention_bins(coord, key_idx, window_size, quant_size, num_bins)
 
     logits = head_sum(qf * k_g)
     for axis in range(3):
         if tq is not None:
-            logits = logits + head_sum(qf * tq[axis].float()[bins[..., axis]])
+            logits = logits + head_sum(qf * tq[axis].to(dt)[bins[..., axis]])
         if tk is not None:
-            logits = logits + head_sum(k_g * tk[axis].float()[bins[..., axis]])
+            logits = logits + head_sum(k_g * tk[axis].to(dt)[bins[..., axis]])
     attn = masked_softmax(logits, key_mask[..., None], dim=2)  # (B, N, K, H)
     if tv is not None:
         for axis in range(3):
-            v_g = v_g + tv[axis].float()[bins[..., axis]]
+            v_g = v_g + tv[axis].to(dt)[bins[..., axis]]
     out = (attn[..., None] * v_g.reshape(B, N, K, H, hd)).sum(dim=2)
     return out.reshape(B, N, C)

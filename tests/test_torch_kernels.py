@@ -614,6 +614,36 @@ def test_st_attention_kernel_refuses_grad(dev):
         assert sa.st_attention(*case).shape == (2, 200, 96)
 
 
+@pytest.mark.parametrize("c,k,window,quant", [(32, 64, 0.16, 0.01), (512, 5, 0.16, 0.01),
+                                             (64, 48, 0.1, 0.005), (128, 40, 0.2, 0.01)])
+def test_st_attention_kernel_slots_and_bins(dev, c, k, window, quant):
+    """K5 at its edges: K = 64 (the most slots), K = 5 at C = 512 (16 head
+    groups), 2L = 80 at 5 mm and at 1 cm bins (the ScanNet configs; the
+    most bins the kernel takes): within 1e-4 of max |plain|, queries without a key
+    at 0, the bins the plain version's."""
+    case = _st_case(dev, c, (True, True, True), seed=c + k, k=k, window=window,
+                    quant=quant)
+    out = sa.st_attention(*case)
+    with _cuda.plain_versions():
+        ref = sa.st_attention(*case)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert (out[:, ::7] == 0).all()
+    coord, key_idx, num_bins = case[3], case[4], case[-1]
+    got = chip_smoke.st_attention_kernel_bins(coord, key_idx, window, quant, num_bins, c)
+    assert int((got != sa.st_attention_bins(coord, key_idx, window, quant, num_bins)).sum()) == 0
+
+
+def test_st_attention_kernel_refuses_past_its_limits(dev):
+    """65 key slots (one past the kernel's most) raise before any launch."""
+    case = list(_st_case(dev, 96, (True, True, True), seed=8, n=300, valid=(300, 200), k=64))
+    case[4] = torch.cat([case[4], case[4][..., :1]], -1)
+    case[5] = torch.cat([case[5], case[5][..., :1]], -1)
+    before = sa.ST_ATTENTION_LAUNCHES
+    with torch.no_grad(), pytest.raises(ValueError, match="64 key slots"):
+        sa.st_attention(*case)
+    assert sa.ST_ATTENTION_LAUNCHES == before
+
+
 def test_st_block_takes_kernel_in_eval_and_plain_in_training(dev):
     """The dispatch of the inference-only kernel: eval under no_grad
     launches K5, eval with a gradient asked of it raises (no quiet plain

@@ -151,7 +151,7 @@ def test_port_runs_without_jax():
     "tools/train_torch.py", "tools/profile_train_torch.py",
     "tools/profile_st_torch.py", "tools/profile_ptv2_torch.py",
     "tools/_profile_torch.py", "tools/attn_fwd_compare_torch.py",
-    "tools/attn_bwd_compare_torch.py",
+    "tools/attn_bwd_compare_torch.py", "tools/st_attention_compare_torch.py",
     "tests/test_torch_kernels.py"])
 def test_no_jax_import_in_port_sources(path):
     # the JAX package is off limits too, every module of it
