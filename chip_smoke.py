@@ -8,21 +8,24 @@ Phases, in order; any failure exits non-zero:
 1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
 2. build of the CUDA kernels from ``pointcloudpdf_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on CUDA tensors at the
-   main path's shapes, with both times (CUDA events; K1 and K2 from a CUDA
-   graph of calls) and the least time the card could take for the same
-   work (its bound); K1 at nineteen shapes: eight for the bound-pruned
+   main path's shapes, with both times (CUDA events; K1, K2, K5 and K6
+   from a CUDA graph of calls) and the least time the card could take for
+   the same work (its bound); K1 at nineteen shapes: eight for the bound-pruned
    kernel's range and the ST sparse keys, one of them a val-pass-sized set
    of 262,144 points, each with the share of the brute-force work that the
    bound-pruned kernel visited and, where it runs, its plan (prep kernels)
    against the plain plan, and eleven of the brute-force kernel at the
    PT-v1 serving forward's and the train step's shapes and at its edges;
-   K2 alone on the windows of the blocked call; K3 at seven,
+   K2 exact and on the windows of the blocked call at the paths' three
+   window shapes, the windows kernel alone beside the whole call, neither
+   K2 kernel spilling registers; K3 at seven,
    two serving stages at B = 2 and the train step's five stages at B = 16;
    K4 at five, three stages at B = 2 and the train step's stages 4 and 5
    at B = 16; neither vector-attention kernel spilling registers; K5 at
    five, the ST config's three layer shapes, the module's defaults (no key
    or value table) and K = 64, each with its bins read back through the
-   kernel, its time from a CUDA graph and no spill;
+   kernel, its time from a CUDA graph and no spill; K6 at the ST stem's
+   two shapes, padded rows 0, neither instantiation spilling registers;
    K7 at seven, every width the shipped PT-v2m2 configs launch and two
    probes of the other branch combinations, none of its instantiations
    spilling registers;
@@ -81,6 +84,12 @@ DEVICE = "cuda"
 N_MAIN = 65536      # the bucket of a full-size S3DIS fragment
 N_EXACT = 32768     # exact FPS: N points, N/4 picks
 N_VAL = 262144      # a val-pass-sized kNN set, B = 1
+# K2's blocked calls at the paths' window shapes, B = 2: (name, N, m,
+# max_group_steps); PT-v1's TransitionDown (windows of 256 x 64), the ST
+# downsampling (512 x 128) and the ST key sets (1,024 x 128)
+FPS_WINDOW_CASES = (("PT-v1 TransitionDown", N_MAIN, N_MAIN // 4, 64),
+                    ("ST downsampling", N_MAIN, N_MAIN // 4, 128),
+                    ("ST key sets", N_MAIN, N_MAIN // 8, 128))
 ROOM = (5.0, 4.0, 3.0)  # metres: an S3DIS office
 MIN_FRAGMENT = 32768
 TOL_K3 = 1e-4       # relative to max |plain|: f32 sums in another order
@@ -182,6 +191,16 @@ def print_compiler_report(path):
             elif "error" in line:
                 print("  " + line.strip())
     return report
+
+
+def expect_no_spill(compiled, name):
+    """Fail unless ``name`` (a key of ``print_compiler_report``'s result)
+    was built and spills no register; returns its registers."""
+    regs, spill_st, spill_ld = compiled.get(name, (-1, -1, -1))
+    expect(regs > 0 and spill_st == 0 and spill_ld == 0,
+           f"{name}: {regs} registers, {spill_st} / {spill_ld} bytes spilled "
+           "(stores / loads)")
+    return regs
 
 
 def bound(n_bytes, n_flops, t_ops=None):
@@ -473,11 +492,13 @@ def check_knn(dev, rng):
     return result
 
 
-def check_fps(dev, rng):
+def check_fps(dev, rng, compiled):
     import torch
 
     from pointcloudpdf_tpu_torch.ops import _cuda, sampling
 
+    for name in ("fps_kernel", *(f"fps_windows_kernel<{ppl}>" for ppl in (8, 16, 32))):
+        expect_no_spill(compiled, name)
     rows, worst = [], 0
     B, N = 2, N_EXACT
     m = N // 4
@@ -502,61 +523,59 @@ def check_fps(dev, rng):
           f"{exact_bound:.4f} ms ({exact_by}: {exact_flops:.3e} flop, {exact_bytes:.3e} "
           f"bytes; the {m} rounds are sequential)")
 
-    # blocked, as TransitionDown calls it at the first downsampling of a
-    # 65536-point bucket: m = N/4, 64 picks per morton window
-    N = N_MAIN
-    coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
-    coord = torch.from_numpy(coord).to(dev)
-    mask = torch.from_numpy(mask).to(dev)
+    # blocked, at the three window shapes of the paths (B = 2)
+    result = None
+    for i, (name, N, m, steps) in enumerate(FPS_WINDOW_CASES):
+        G, g, k_g = sampling.window_shape(N, m, None, steps)
+        # the ST cases from seeds of their own, so that the later checks'
+        # inputs stay put
+        coord, mask = clustered_cloud(rng if i == 0 else np.random.RandomState(SEED + i),
+                                      B, N, [N, N - N // 7])
+        coord = torch.from_numpy(coord).to(dev)
+        mask = torch.from_numpy(mask).to(dev)
 
-    def blocked():
-        return sampling.blocked_farthest_point_sampling(
-            coord, N // 4, mask, max_group_steps=64)
+        def blocked():
+            return sampling.blocked_farthest_point_sampling(
+                coord, m, mask, max_group_steps=steps)
 
-    # the windows the blocked call hands K2 (B x 256 sets of 256 sorted
-    # points, 64 picks each), caught on their way in
-    windows, fps_sets = [], sampling.fps_sets
-
-    def catch(xyz, mask, m):
-        windows.append((xyz, mask, m))
-        return fps_sets(xyz, mask, m)
-
-    sampling.fps_sets = catch
-    try:
         idx, valid = blocked()
-    finally:
-        sampling.fps_sets = fps_sets
-    with _cuda.plain_versions():
-        pidx, pvalid = blocked()
-    worst = max(worst, int((idx - pidx).abs().max()))
-    expect(torch.equal(idx, pidx) and torch.equal(valid, pvalid),
-           f"K2 blocked N={N} m={N // 4} ({N // 256} windows x 64): "
-           "indices equal")
-    expect(len(windows) == 1, "the blocked call hands K2 one batch of windows")
-    wxyz, wmask, wm = windows[0]
-    # K2 alone on those windows (a CUDA graph of calls: the kernel's own
-    # time), and the whole blocked call (morton sort, gathers, duplicate
-    # flags and K2) back to back
-    ms = graph_ms(lambda: sampling.fps_sets(wxyz, wmask, wm), 5)
-    wrapper_ms = cuda_ms(blocked, 5)
-    with _cuda.plain_versions():
-        plain_ms = cuda_ms(lambda: sampling.fps_sets(wxyz, wmask, wm), 2)
-    rows.append((f"blocked N={N} m={N // 4}", ms, plain_ms))
-    print(f"  K2 blocked N={N} m={N // 4}: kernel {ms:.4f} ms on its {wxyz.shape[0]} windows "
-          f"of {wxyz.shape[1]} points x {wm} picks, plain {plain_ms:.3f} ms; the blocked "
-          f"call {wrapper_ms:.3f} ms")
-    # bound of the blocked case: each of the 64 rounds of a window scans its
-    # 256 points once (8 flop a distance, a min and a compare); coords and
-    # mask read once, m indices and flags written
-    n_flops = B * N * 64 * 10
-    n_bytes = B * N * 13 + B * (N // 4) * 9
-    bound_ms, bound_by = bound(n_bytes, n_flops)
-    print(f"  K2 blocked bound: {n_flops:.3e} flop, {n_bytes:.3e} bytes "
-          f"-> {bound_ms:.5f} ms ({bound_by}); the 64 rounds are sequential")
-    return {"max_abs_err": float(worst), "ms": rows[1][1], "plain_ms": rows[1][2],
-            "wrapper_ms": wrapper_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "shape": f"blocked, B=2 x N={N}, m={N // 4}: {wxyz.shape[0]} windows x {wm}",
-            "rows": rows}
+        with _cuda.plain_versions():
+            pidx, pvalid = blocked()
+        worst = max(worst, int((idx - pidx).abs().max()))
+        case = f"{name}: N={N} m={m} ({B * G} windows of {g} x {k_g})"
+        expect(torch.equal(idx, pidx) and torch.equal(valid, pvalid),
+               f"K2 blocked {case}: indices and flags equal")
+        # the windows kernel alone on the sorted samples the blocked call
+        # hands it (a CUDA graph of calls: the kernel's own time), and the
+        # whole blocked call (morton sort, gathers, duplicate flags and K2)
+        order = sampling.morton_sort_indices(coord, mask)
+        sorted_coord = coord.gather(1, order[..., None].expand(B, N, 3)).contiguous()
+        count = mask.sum(1, dtype=torch.int32)
+        pos = sampling.fps_windows(sorted_coord, count, G, g, k_g)
+        with _cuda.plain_versions():
+            ppos = sampling.fps_windows(sorted_coord, count, G, g, k_g)
+        expect(torch.equal(pos, ppos), f"K2 windows {case}: positions equal")
+        ms = graph_ms(lambda: sampling.fps_windows(sorted_coord, count, G, g, k_g), 10)
+        wrapper_ms = cuda_ms(blocked, 5)
+        with _cuda.plain_versions():
+            plain_ms = cuda_ms(lambda: sampling.fps_windows(sorted_coord, count, G, g, k_g), 2)
+        # bound: each of the k_g rounds of a window scans its g points once
+        # (8 flop a distance, a min and a compare); the sorted coordinates
+        # and the counts read once, the positions written once.  Floor of
+        # the dependent rounds: tools/fps_compare_torch.py
+        n_flops = B * G * g * k_g * 10
+        n_bytes = B * N * 12 + B * 4 + B * m * 8
+        bound_ms, bound_by = bound(n_bytes, n_flops)
+        rows.append((f"blocked {case}", ms, plain_ms))
+        print(f"  K2 windows {case}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {n_flops:.3e} flop, {n_bytes:.3e} bytes; "
+              f"{k_g} sequential rounds); the blocked call {wrapper_ms:.3f} ms")
+        if result is None:  # the main path's shape: PT-v1's windows
+            result = {"ms": ms, "plain_ms": plain_ms, "wrapper_ms": wrapper_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "shape": f"blocked, B=2 x N={N}, m={m}: {B * G} windows of "
+                               f"{g} points x {k_g} picks"}
+    return dict(result, max_abs_err=float(worst), rows=rows)
 
 
 def attention_inputs(dev, rng, N, C, K, drop=0.0, grad=False, valid=None):
@@ -663,11 +682,7 @@ def check_attention(dev, rng, compiled):
 
     for kernel in ("attn_kernel", "attn_bwd_kernel"):
         for width in _WIDTHS:
-            name = f"{kernel}<{width}>"
-            regs, spill_st, spill_ld = compiled.get(name, (-1, -1, -1))
-            expect(regs > 0 and spill_st == 0 and spill_ld == 0,
-                   f"{name}: {regs} registers, {spill_st} / {spill_ld} bytes "
-                   "spilled (stores / loads)")
+            expect_no_spill(compiled, f"{kernel}<{width}>")
     train_rng = np.random.RandomState(SEED + 9)
     crops = train_rng.randint(TRAIN_CROP[0], TRAIN_CROP[1] + 1, size=16)
     cases = [("stage-1 C=32 K=8", N_MAIN, 32, 8, None),
@@ -913,9 +928,7 @@ def check_st_attention(dev, rng, compiled):
     from pointcloudpdf_tpu_torch.ops import _cuda
     from pointcloudpdf_tpu_torch.ops import st_attention as sa
 
-    regs, spill_st, spill_ld = compiled.get("st_attention_kernel", (-1, -1, -1))
-    expect(regs > 0 and spill_st == 0 and spill_ld == 0,
-           f"K5 st_attention_kernel: {regs} registers, no spill")
+    regs = expect_no_spill(compiled, "st_attention_kernel")
     rows, worst = [], 0.0
     # the two probes past the layer shapes draw from a seed of their own, so
     # the kernels checked after K5 see the inputs they saw before
@@ -964,17 +977,20 @@ def check_st_attention(dev, rng, compiled):
                      "max_abs_err is relative to max |plain|", "rows": rows}
 
 
-def check_kpconv(dev, rng):
-    """K6 against ``kpconv_plain`` at the two stem shapes, N = 65536, over
-    the 34 nearest points of a 0.10 m ball (K1 + the radius cut)."""
+# K6's phase-3 shapes (C_in, C_out): the S3DIS ST stem's two KPConvs
+KPCONV_SHAPES = ((6, 48), (12, 12))
+
+
+def kpconv_table(dev, rng, B=2, N=N_MAIN, S=34, radius=0.10, sigma_r=0.04):
+    """K6's inputs but for the features and weights: (coord, mask, idx,
+    nmask, kernel points, sigma_r), over the S nearest points of a 0.10 m
+    ball (K1 + the radius cut)."""
     import torch
 
     from pointcloudpdf_tpu_torch.models.stratified_transformer.st import (
         kpconv_kernel_points)
-    from pointcloudpdf_tpu_torch.ops import _cuda, geometry
-    from pointcloudpdf_tpu_torch.ops import kpconv as kp
+    from pointcloudpdf_tpu_torch.ops import geometry
 
-    B, N, S, radius, sigma_r = 2, N_MAIN, 34, 0.10, 0.04
     coord, mask = clustered_cloud(rng, B, N, [N, N - N // 7])
     # shrunk, so that a ball holds what a room at 4 cm voxels gives it (some
     # 20 points, many balls full) and not the ~6 of the room-scale cloud
@@ -982,18 +998,52 @@ def check_kpconv(dev, rng):
     mask = torch.from_numpy(mask).to(dev)
     idx, nmask = geometry.ball_query(coord, coord, radius, S, ref_mask=mask)
     nmask = nmask & mask[..., None]
+    points = torch.from_numpy(
+        kpconv_kernel_points() * np.float32(1.5 * sigma_r)).to(dev)
+    return coord, mask, idx, nmask, points, sigma_r
+
+
+def kpconv_weights(dev, rng, B, N, P, c_in, c_out):
+    import torch
+
+    feat = torch.from_numpy(
+        rng.standard_normal((B, N, c_in)).astype(np.float32)).to(dev)
+    weight = torch.from_numpy(
+        (rng.standard_normal((P, c_in, c_out)) * 0.2).astype(np.float32)).to(dev)
+    return feat, weight
+
+
+def kpconv_bound(nmask, B, N, S, P, c_in, c_out):
+    """Bytes: coord, feat, idx, nmask, the kernel points and W read once,
+    out written once.  Operations: a valid pair takes 12 P for its
+    influences (3 sub, 3 mul, 2 add, sqrt, div, sub, max a kernel point) and
+    2 P C_in for the weighted features; a point with a neighbour 2 P C_in
+    C_out for the product with W.  -> (bytes, flop, ms, by, pairs)."""
+    pairs, pts = float(nmask.sum()), float(nmask.any(-1).sum())
+    n_bytes = (B * N * (12 + 4 * c_in + 5 * S + 4 * c_out)
+               + P * 12 + P * c_in * c_out * 4)
+    n_flops = pairs * (12 * P + 2 * P * c_in) + pts * 2 * P * c_in * c_out
+    return (n_bytes, n_flops, *bound(n_bytes, n_flops), pairs)
+
+
+def check_kpconv(dev, rng, compiled):
+    """K6 against ``kpconv_plain`` at the two stem shapes, N = 65536."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import _cuda
+    from pointcloudpdf_tpu_torch.ops import kpconv as kp
+
+    for nt in (1, 2):
+        expect_no_spill(compiled, f"kpconv_kernel<{nt}>")
+    B, N, S = 2, N_MAIN, 34
+    coord, mask, idx, nmask, points, sigma_r = kpconv_table(dev, rng, B, N, S)
     counts = nmask.sum(-1)[mask]
     print(f"  K6 neighbour table: {float(counts.float().mean()):.1f} of {S} slots "
           f"valid a point, {float((counts == S).float().mean()):.3f} of the balls full")
-    points = torch.from_numpy(
-        kpconv_kernel_points() * np.float32(1.5 * sigma_r)).to(dev)
     P = points.shape[0]
     rows, worst = [], 0.0
-    for c_in, c_out in ((6, 48), (12, 12)):
-        feat = torch.from_numpy(
-            rng.standard_normal((B, N, c_in)).astype(np.float32)).to(dev)
-        weight = torch.from_numpy(
-            (rng.standard_normal((P, c_in, c_out)) * 0.2).astype(np.float32)).to(dev)
+    for c_in, c_out in KPCONV_SHAPES:
+        feat, weight = kpconv_weights(dev, rng, B, N, P, c_in, c_out)
 
         def run():
             return kp.kpconv(coord, feat, idx, nmask, points, weight, sigma_r)
@@ -1009,25 +1059,18 @@ def check_kpconv(dev, rng):
             expect(err <= TOL_K6 * scale,
                    f"K6 {name}: max abs err {err:.3e} <= {TOL_K6} x {scale:.3e}")
             expect(bool((out[~mask] == 0).all()), f"K6 {name}: padded rows give 0")
-            ms = cuda_ms(run, 10)
+            ms = graph_ms(run, 10)
+            wrapper_ms = cuda_ms(run, 10)
             with _cuda.plain_versions():
                 plain_ms = cuda_ms(run, 3)
-        # bytes: coord, feat, idx, nmask, the kernel points and W read once,
-        # out written once.  Operations: a valid pair takes 12 P for its
-        # influences (3 sub, 3 mul, 2 add, sqrt, div, sub, max a kernel
-        # point) and 2 P C_in for the weighted features; a point with a
-        # neighbour 2 P C_in C_out for the product with W
-        pairs, pts = float(nmask.sum()), float(nmask.any(-1).sum())
-        n_bytes = (B * N * (12 + 4 * c_in + 5 * S + 4 * c_out)
-                   + P * 12 + P * c_in * c_out * 4)
-        n_flops = pairs * (12 * P + 2 * P * c_in) + pts * 2 * P * c_in * c_out
-        bound_ms, bound_by = bound(n_bytes, n_flops)
-        rows.append((name, ms, plain_ms, bound_ms, bound_by))
-        print(f"  K6 {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} bytes, {n_flops:.3e} "
-              f"flop over {pairs:.3e} valid pairs)")
+        n_bytes, n_flops, bound_ms, bound_by, pairs = kpconv_bound(
+            nmask, B, N, S, P, c_in, c_out)
+        rows.append((name, ms, plain_ms, bound_ms, bound_by, wrapper_ms))
+        print(f"  K6 {name}: kernel {ms:.4f} ms (wrapper {wrapper_ms:.4f}), plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_bytes:.3e} "
+              f"bytes, {n_flops:.3e} flop over {pairs:.3e} valid pairs)")
     return {"max_abs_err": worst, "ms": rows[0][1], "plain_ms": rows[0][2],
-            "bound_ms": rows[0][3], "bound_by": rows[0][4],
+            "bound_ms": rows[0][3], "bound_by": rows[0][4], "wrapper_ms": rows[0][5],
             "shape": f"stem 6->48, B=2 x N={N}, S=34, P=15; "
                      "max_abs_err is relative to max |plain|", "rows": rows}
 
@@ -1115,11 +1158,7 @@ def check_gva(dev, rng, compiled):
 
     for width in gva._WIDTHS:
         for mul in (0, 1):  # the multiplier encoding off / on
-            name = f"gva_kernel<{width}, {mul}>"
-            regs, spill_st, spill_ld = compiled.get(name, (-1, -1, -1))
-            expect(regs > 0 and spill_st == 0 and spill_ld == 0,
-                   f"{name}: {regs} registers, {spill_st} / {spill_ld} bytes "
-                   "spilled (stores / loads)")
+            expect_no_spill(compiled, f"gva_kernel<{width}, {mul}>")
     rows, worst = [], 0.0
     for N, C, pe in GVA_CASES:
         args, mask = gva_inputs(dev, rng, N, C, pe)
@@ -1622,11 +1661,12 @@ def main() -> int:
     knn = check_knn(dev, rng)
     results = {"knn_pruned": dict(knn["pruned"], max_abs_err=knn["max_abs_err"]),
                "knn_brute": dict(knn["brute"], max_abs_err=knn["max_abs_err"]),
-               "fps": check_fps(dev, rng),
+               "fps": check_fps(dev, rng, compiled),
                "vector_attention": check_attention(dev, rng, compiled),
                "vector_attention_train": check_attention_train(dev, rng),
                "st_attention": check_st_attention(dev, rng, compiled),
-               "kpconv": check_kpconv(dev, rng), "gva": check_gva(dev, rng, compiled)}
+               "kpconv": check_kpconv(dev, rng, compiled),
+               "gva": check_gva(dev, rng, compiled)}
 
     with tempfile.TemporaryDirectory() as work:
         print("[4] serving slice end to end")

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "pcpdf_knn_pruned": [_P] * 6 + [_I] * 6 + [_P] * 4,
     # xyz, mask, S, n, m, scratch, out, stream
     "pcpdf_fps": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # sorted, count, B, N, G, g, k_g, pos, stream
+    "pcpdf_fps_windows": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     # xq, xk, xv, coord, idx, nmask, params, w1s, B, N, C, K, out, stream
     "pcpdf_vector_attention": [_P] * 8 + [_I] * 4 + [_P, _P],
     "pcpdf_vector_attention_params": [_I],

@@ -13,7 +13,12 @@ gather on that chip), uncapped and missing ~0.06% of in-radius pairs, so
 the JAX package's two paths disagree; the port computes the exact path's
 function, over the ``max_neighbor`` nearest in-radius points that K1 gives
 it.  K6 (csrc/kpconv.cu) gathers the neighbour rows by index inside the
-kernel; its source note says what bounds it on the card.  ``kpconv_plain``
+kernel and runs both products on the tensor cores; its source note says
+what bounds it on the card.  It takes up to ``MAX_SLOTS`` slots,
+``MAX_POINTS`` kernel points, ``MAX_C_IN`` channels in and ``MAX_C_OUT``
+out (every KPConv of the shipped ST configs: 34 slots, 15 kernel points,
+the stem's 6 -> 48 and its residual block's 12 -> 12; a nine-channel
+input's 9 -> 48 too), and the wrapper raises on a larger shape.  ``kpconv_plain``
 is its plain PyTorch version: the same direct differences
 ``(dx*dx + dy*dy) + dz*dz`` (not the matmul identity of the JAX path, whose
 rounding near a kernel point is ~1e-3 of ``sigma_r``), differentiable in
@@ -34,6 +39,8 @@ from . import _cuda
 from .geometry import divide_exact, gather_rows
 
 KPCONV_LAUNCHES = 0  # K6 launches since the last reset
+# csrc/kpconv.cu's limits: neighbour slots, kernel points, channels in / out
+MAX_SLOTS, MAX_POINTS, MAX_C_IN, MAX_C_OUT = 40, 16, 16, 64
 
 
 def kpconv(coord, feat, idx, nmask, kp, weight, sigma_r: float):
@@ -62,6 +69,11 @@ def _kpconv_cuda(coord, feat, idx, nmask, kp, weight, sigma_r):
     if w_in != c_in or kp.shape != (P, 3):
         raise ValueError(f"kpconv: weight {tuple(weight.shape)} and kernel "
                          f"points {tuple(kp.shape)} do not fit C_in {c_in}")
+    if S > MAX_SLOTS or P > MAX_POINTS or c_in > MAX_C_IN or c_out > MAX_C_OUT:
+        raise ValueError(
+            f"kpconv: the kernel takes up to {MAX_SLOTS} neighbour slots, "
+            f"{MAX_POINTS} kernel points, {MAX_C_IN} channels in and "
+            f"{MAX_C_OUT} out; got S={S}, P={P}, C_in={c_in}, C_out={c_out}")
     out = torch.empty((B, N, c_out), dtype=torch.float32, device=feat.device)
     err = _cuda.library().pcpdf_kpconv(
         coord.data_ptr(), feat.data_ptr(), idx.data_ptr(), nmask.data_ptr(),

@@ -251,10 +251,63 @@ def test_fps_kernel_matches_plain(dev, n, m):
 
 def test_blocked_fps_kernel_matches_plain(dev):
     c, mk = _cloud(13, 2, 16384, [16384, 9000], dev)
+    before = sampling.FPS_LAUNCHES
     got = sampling.blocked_farthest_point_sampling(c, 4096, mk, max_group_steps=64)
+    assert sampling.FPS_LAUNCHES == before + 1
     with _cuda.plain_versions():
         want = sampling.blocked_farthest_point_sampling(c, 4096, mk, max_group_steps=64)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _sorted_windows_case(seed, B, N, valid, dev, ties=False):
+    """Samples in morton order with their valid points first, as the
+    blocked call hands them to ``fps_windows``; ``ties``: coordinates on a
+    coarse grid, every 5th point a copy of its neighbour (exact ties and
+    zero distances)."""
+    rng = np.random.RandomState(seed)
+    coord, mask = chip_smoke.clustered_cloud(rng, B, N, valid)
+    if ties:
+        coord = np.round(coord * 4) / 4
+        coord[:, 1::5] = coord[:, 0:-1:5]
+    coord, mask = torch.from_numpy(coord).to(dev), torch.from_numpy(mask).to(dev)
+    order = sampling.morton_sort_indices(coord, mask)
+    sorted_coord = coord.gather(1, order[..., None].expand(-1, -1, 3)).contiguous()
+    return sorted_coord, mask.sum(1)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("g,k_g", [(256, 64), (512, 128), (1024, 128), (4096, 64)])
+def test_fps_windows_kernel_matches_plain(dev, g, k_g, ties):
+    """The windows kernel at the paths' window sizes (256 / 64 PT-v1, 512 and
+    1,024 / 128 ST; 4,096 takes the block kernel): positions equal to the
+    plain version's,
+    on a full sample, one with a masked tail (overlapping last windows),
+    one with fewer valid points than picks in a window, and an empty one."""
+    G, B = 8, 4
+    N = G * g
+    sorted_coord, count = _sorted_windows_case(
+        g + k_g, B, N, [N, N - g // 3 - 5, G * k_g // 2, 0], dev, ties)
+    before = sampling.FPS_LAUNCHES
+    pos = sampling.fps_windows(sorted_coord, count, G, g, k_g)
+    assert sampling.FPS_LAUNCHES == before + 1
+    with _cuda.plain_versions():
+        want = sampling.fps_windows(sorted_coord, count, G, g, k_g)
+    assert sampling.FPS_LAUNCHES == before + 1
+    assert pos.dtype == torch.int64 and pos.shape == (B, G * k_g)
+    assert torch.equal(pos, want)
+
+
+def test_fps_windows_above_the_kernel_take_the_block_kernel(dev):
+    """Windows above ``FPS_WINDOW_MAX`` points go to the block kernel over
+    gathered windows: one launch, the plain version's positions."""
+    g = 2 * sampling.FPS_WINDOW_MAX
+    sorted_coord, count = _sorted_windows_case(21, 2, 2 * g, [2 * g, g + 100], dev)
+    before = sampling.FPS_LAUNCHES
+    pos = sampling.fps_windows(sorted_coord, count, 2, g, 40)
+    assert sampling.FPS_LAUNCHES == before + 1
+    with _cuda.plain_versions():
+        want = sampling.fps_windows(sorted_coord, count, 2, g, 40)
+    assert torch.equal(pos, want)
 
 
 def _eval_attention_layer(c, k, seed):
@@ -709,6 +762,37 @@ def test_kpconv_kernel_matches_plain(dev, c_in, c_out):
     assert out.shape == (3, 4000, c_out) and float(ref.abs().max()) > 0.1
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert (out[2] == 0).all() and (out[1, 2500:] == 0).all()
+
+
+@pytest.mark.parametrize("c_in,c_out", [(16, 64), (9, 48), (1, 1)])
+def test_kpconv_kernel_at_its_limits(dev, c_in, c_out):
+    """C_in = 16 / C_out = 64 (the limits), the ScanNet stem's 9 -> 48 and
+    1 -> 1: within 1e-4 of max |plain|, padded rows 0."""
+    case = _kpconv_case(dev, c_in, c_out, seed=30 + c_in, n=3000, valid=(3000, 1700))
+    out = kp.kpconv(*case)
+    with _cuda.plain_versions():
+        ref = kp.kpconv(*case)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert (out[1, 1700:] == 0).all()
+
+
+@pytest.mark.parametrize("what", ["slots", "points", "c_in", "c_out"])
+def test_kpconv_kernel_refuses_past_its_limits(dev, what):
+    coord, feat, idx, nmask, points, weight, sigma = _kpconv_case(
+        dev, 6, 48, seed=2, n=200, valid=(200, 120))
+    if what == "slots":
+        idx = torch.cat([idx, idx[..., :kp.MAX_SLOTS - 33]], -1)
+        nmask = torch.cat([nmask, nmask[..., :kp.MAX_SLOTS - 33]], -1)
+    elif what == "points":
+        points = torch.cat([points, points[:kp.MAX_POINTS - 14]])
+        weight = torch.cat([weight, weight[:kp.MAX_POINTS - 14]])
+    elif what == "c_in":
+        feat = feat.repeat(1, 1, 3)
+        weight = weight.repeat(1, 3, 1)
+    else:
+        weight = weight.repeat(1, 1, 2)
+    with pytest.raises(ValueError, match="kernel takes up to"):
+        kp.kpconv(coord, feat, idx, nmask, points, weight, sigma)
 
 
 def test_kpconv_kernel_refuses_grad(dev):

@@ -152,7 +152,9 @@ def test_port_runs_without_jax():
     "tools/profile_st_torch.py", "tools/profile_ptv2_torch.py",
     "tools/_profile_torch.py", "tools/attn_fwd_compare_torch.py",
     "tools/attn_bwd_compare_torch.py", "tools/st_attention_compare_torch.py",
-    "tests/test_torch_kernels.py"])
+    "tools/fps_compare_torch.py", "tools/kpconv_compare_torch.py",
+    "tools/kpconv_clocks.py", "tests/test_torch_kernels.py",
+    "tests/test_torch_fps_windows.py", "tests/test_torch_kpconv_tiles.py"])
 def test_no_jax_import_in_port_sources(path):
     # the JAX package is off limits too, every module of it
     pattern = re.compile(r"^\s*(import|from) (jax|flax|pointcloudpdf_tpu\b(?!_torch))")
