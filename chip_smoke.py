@@ -54,14 +54,27 @@ Phases, in order; any failure exits non-zero:
    ``tools/test_torch.py`` on the shipped S3DIS PT-v2m2 config
    (``SemSegTester``) over the synthetic room, the launches of a forward
    (K7 fifteen times, K1 four times, no other kernel), no point dropped by
-   the pooling capacity, then one fragment on the plain versions.
+   the pooling capacity, then one fragment on the plain versions;
+9. the Stratified Transformer open-set training slice end to end:
+   ``tools/train_torch.py`` on the shipped S3DIS ST config at full width
+   over phase 5's rooms (the largest batch of 16, 8, 4, 2 that fits), the
+   last epoch past ``recognizer.start_epoch``; K5 and K6 launched in the
+   score passes and evaluator forwards alone (the training forwards take
+   their plain versions), then ``tools/test_torch.py`` on its checkpoint;
+10. the incremental slice end to end: ``tools/train_torch.py`` on the
+   shipped incremental config from phase 5's checkpoint (frozen Seg50
+   teacher on K3, Seg50 student with two more classes on K4), then
+   ``tools/test_torch.py`` (``IncrSegTester``) on the student; one
+   incremental step on the kernels and on the plain versions, and the
+   teacher's logits under bfloat16 autocast against its f32 plain version.
 
-The next-to-last line is ``{"kernels": [...]}``; the last is
+Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import glob
 import json
 import os
@@ -79,6 +92,8 @@ CONFIG = os.path.join(ROOT, "configs", "s3dis",
 ST_CONFIG = os.path.join(ROOT, "configs", "s3dis",
                          "openseg-st-v1m1-0-origin-pointpdf-v1m1-base.py")
 PTV2_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v2m2-0-base.py")
+INCR_CONFIG = os.path.join(ROOT, "configs", "s3dis",
+                           "incrseg-pt-v1-0-pointpdf-v1m1-base.py")
 SEED = 0
 DEVICE = "cuda"
 N_MAIN = 65536      # the bucket of a full-size S3DIS fragment
@@ -110,6 +125,10 @@ F32_FLOPS = 67e12
 TF32_SPLIT_FLOPS = 495e12 / 3  # split TF32 on the tensor cores: three TF32 products a product
 TOL_LOGITS = 1e-3   # relative to max |logit|, after 13 attention blocks
 TOL_SCORE = 1e-4
+# the incremental teacher's logits under bfloat16 autocast (K3, its inputs cast
+# to f32) against the f32 plain version, of max |logit|: eight mantissa bits in
+# every Linear of 18 blocks
+TOL_AMP_LOGITS = 5e-2
 # valid points of the smallest and the largest crop of the shipped training
 # batch (16 crops in the 81,920 bucket; chip_smoke.py phase 5's rooms)
 TRAIN_CROP = (58542, 69770)
@@ -1401,13 +1420,9 @@ PTV2_PER_FORWARD = {"gva": 2 + (2 + 6 + 2) + (1 + 1 + 1), "knn": 4}
 PTV2_K7_BY_WIDTH = {48: 2 + 1, 96: 2 + 1, 192: 6 + 1, 384: 2}
 
 
-def run_training_slice(work):
-    """``tools/train_torch.py`` on the shipped config at full width, then
-    ``tools/test_torch.py`` on the checkpoint it saved."""
-    import re
-
-    import torch
-
+def make_train_rooms(work):
+    """Synthetic rooms over the five train areas and one val room (Area_5)
+    in the S3DIS layout; returns (data_root, val room's raw points)."""
     data_root = os.path.join(work, "s3dis_train")
     for area in (*TRAIN_AREAS, "Area_5"):
         os.makedirs(os.path.join(data_root, area))
@@ -1418,19 +1433,30 @@ def run_training_slice(work):
     n_val = synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"))
     print(f"  {TRAIN_ROOMS} train rooms over {len(TRAIN_AREAS)} areas, 1 val room "
           f"of {n_val} raw points")
+    return data_root, n_val
 
-    epochs, start_epoch = 3, 2
+
+def train_with_fallback(work, config, name, data_root, epochs, options,
+                        subsample=True):
+    """``tools/train_torch.py`` on ``config`` at the largest batch size of 16
+    (shipped), 8, 4 and 2 that fits the card's memory, with the launch
+    counts set to 0 just before the run that fits; with ``subsample`` (an
+    open-set trainer) two iterations an epoch at any batch size.  Returns
+    (log, batch size, iterations an epoch, wall s, launches, peak GiB,
+    save_path)."""
+    import torch
+
     for batch_size in (16, 8, 4, 2):
-        iters = 2  # a handful of steps: two iterations an epoch
-        save_path = os.path.join(work, f"exp_train_b{batch_size}")
-        argv = ["--config-file", CONFIG, "--device", DEVICE, "--options",
+        iters = 2 if subsample else TRAIN_ROOMS // batch_size
+        save_path = os.path.join(work, f"exp_{name}_b{batch_size}")
+        argv = ["--config-file", config, "--device", DEVICE, "--options",
                 f"data_root={data_root}", f"save_path={save_path}",
                 f"data.train.data_root={data_root}",
-                f"data.val.data_root={data_root}",
-                f"data.test.data_root={data_root}", "num_worker=4",
+                f"data.val.data_root={data_root}", "num_worker=4",
                 f"batch_size={batch_size}", f"epoch={epochs}",
-                f"eval_epoch={epochs}", f"recognizer.start_epoch={start_epoch}",
-                f"train_subsampling_ratio={2 * batch_size / TRAIN_ROOMS}"]
+                f"eval_epoch={epochs}", *options]
+        if subsample:
+            argv.append(f"train_subsampling_ratio={iters * batch_size / TRAIN_ROOMS}")
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1438,11 +1464,13 @@ def run_training_slice(work):
             log = run_tool("train_torch.py", argv)
         except torch.cuda.OutOfMemoryError:
             print(f"  batch size {batch_size} does not fit the card's memory")
-            torch.cuda.empty_cache()
-            continue
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        break
+        else:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            break
+        # the failed run's tensors are free once its traceback is gone
+        gc.collect()
+        torch.cuda.empty_cache()
     else:
         raise SmokeFailure("no batch size fits the card's memory")
     launches = read_launches()
@@ -1451,6 +1479,19 @@ def run_training_slice(work):
     print(f"  tools/train_torch.py: batch size {batch_size} (shipped: 16), "
           f"{epochs} epochs x {iters} iterations, {wall:.1f} s, peak device "
           f"memory {peak:.2f} GiB; launches {launches}")
+    return log, batch_size, iters, wall, launches, peak, save_path
+
+
+def run_training_slice(work):
+    """``tools/train_torch.py`` on the shipped config at full width, then
+    ``tools/test_torch.py`` on the checkpoint it saved."""
+    import re
+
+    data_root, n_val = make_train_rooms(work)
+    epochs, start_epoch = 3, 2
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, CONFIG, "train", data_root, epochs,
+        [f"data.test.data_root={data_root}", f"recognizer.start_epoch={start_epoch}"])
 
     steps = epochs * iters
     step_log = "\n".join(line for line in log.splitlines() if "Train: [" in line)
@@ -1498,7 +1539,7 @@ def run_training_slice(work):
     pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
     expect(pred.shape == (n_val,) and pred.min() >= 0 and pred.max() < 13,
            f"pred covers all {n_val} points of the val room")
-    return launches, data_root, batch_size, peak
+    return launches, data_root, batch_size, peak, weight, n_val
 
 
 def compare_train_steps(work, data_root):
@@ -1621,6 +1662,208 @@ def compare_train_steps(work, data_root):
     expect(np.isfinite(amp_loss), f"one step under bfloat16 autocast: loss {amp_loss:.4f}")
 
 
+def train_log_losses(log, steps, keys=("loss",)):
+    """The per-step values of ``keys`` in a training log, each asserted
+    finite at every one of ``steps`` steps."""
+    import re
+
+    step_log = "\n".join(line for line in log.splitlines() if "Train: [" in line)
+    expect(step_log.count("Train: [") == steps, f"{steps} train steps logged")
+    out = {}
+    for key in keys:
+        values = [float(v) for v in re.findall(rf"\b{key}: ([-+.\w]+) ", step_log)]
+        expect(len(values) == steps and all(np.isfinite(values)),
+               f"{key} finite at every step: {values}")
+        out[key] = values
+    return out
+
+
+def run_st_training_slice(work, data_root, n_val):
+    """``tools/train_torch.py`` on the shipped S3DIS ST config at full width
+    (ST-v1m1 + ST recognizer, AdamW with the blocks' group, the warm-up
+    schedule, drop path 0.3 from the trainer's generator), the last epoch
+    past ``recognizer.start_epoch``; then ``tools/test_torch.py`` on the
+    checkpoint it saved.  K5 and K6 have no backward: the training forwards
+    take their plain versions, so they launch in the score passes and the
+    evaluator's forwards alone."""
+    import re
+
+    epochs, start_epoch = 2, 1
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, ST_CONFIG, "st_train", data_root, epochs,
+        [f"data.test.data_root={data_root}", f"recognizer.start_epoch={start_epoch}"])
+    steps = epochs * iters
+    losses = train_log_losses(log, steps, ("loss", "loss_rec"))
+    print(f"  losses {losses['loss']}, loss_rec {losses['loss_rec']}")
+    expect(len(re.findall(r"Val result: mIoU/mAcc/allAcc", log)) == epochs
+           and len(re.findall(r"Val result: aupr/auroc", log)) == epochs,
+           "evaluator reported mIoU and AUPR/AUROC after every epoch")
+    # score passes past start_epoch (one an iteration) + one val room an epoch
+    forwards = iters * (epochs - start_epoch) + epochs
+    for key in ("st_attention", "kpconv"):
+        want = ST_PER_FORWARD[key] * forwards
+        expect(launches[key] == want,
+               f"{key}: {launches[key]} launches = {ST_PER_FORWARD[key]} x "
+               f"{forwards} eval forwards ({iters} score passes + {epochs} "
+               f"evaluator forwards), none in the {steps} training forwards")
+    expect(launches["vector_attention"] == 0 and launches["gva"] == 0
+           and launches["vector_attention_train"] == (0, 0),
+           "the ST path launched no PT-v1 or PT-v2 kernel")
+    expect(launches["knn"] > 0 and launches["fps"] > 0,
+           f"K1 {launches['knn']} and K2 {launches['fps']} launches")
+
+    weight = os.path.join(save_path, "model", "model_last.pth")
+    expect(os.path.isfile(weight), "checkpoint model_last.pth saved")
+    test_save = os.path.join(work, "exp_st_train_test")
+    log = run_tool("test_torch.py", [
+        "--config-file", ST_CONFIG, "--device", DEVICE, "--options",
+        f"data_root={data_root}", f"weight={weight}", f"save_path={test_save}",
+        f"data.test.data_root={data_root}"])
+    expect("Val result: mIoU/mAcc/allAcc" in log and "Val result: aupr/auroc" in log,
+           "tools/test_torch.py loaded the ST trainer's checkpoint and tested it")
+    pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
+    expect(pred.shape == (n_val,) and pred.min() >= 0 and pred.max() < 13,
+           f"pred covers all {n_val} points of the val room")
+    return launches, batch_size, peak
+
+
+def incr_test_config(work):
+    """The shipped incremental config with a test set: the shipped open-set
+    config's ``data.test`` (fragment voting over the Area_5 rooms), which
+    the incremental configs leave out."""
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    test = Config.fromfile(CONFIG).to_dict()["data"]["test"]
+    test.pop("unknown_label", None)
+    path = os.path.join(work, "incrseg-pt-v1-test.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{INCR_CONFIG!r}]\ndata = dict(test={test!r})\n")
+    return path
+
+
+def run_incr_slice(work, data_root, n_val, base_weight):
+    """``tools/train_torch.py`` on the shipped incremental config (a frozen
+    Seg50 teacher from phase 5's checkpoint distilled into a Seg50 student
+    with two more classes, autocast as shipped), then ``tools/test_torch.py``
+    (``IncrSegTester``) on the student it saved; then one incremental step
+    twice from one state, on the kernels and on the plain versions, and the
+    teacher's logits under bfloat16 autocast (K3) against its f32 plain
+    version."""
+    import copy
+    import re
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.ops import _cuda
+    from pointcloudpdf_tpu_torch.ops import vector_attention as va
+
+    epochs = 2
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, INCR_CONFIG, "incr_train", data_root, epochs,
+        [f"base_ckpt={base_weight}"], subsample=False)
+    steps = epochs * iters
+    expect("Loading base weights into the student (trim_base_weight_head)" in log,
+           "the base checkpoint started the teacher and the student")
+    losses = train_log_losses(log, steps)["loss"]
+    print(f"  distillation losses {losses}")
+    for tag in ("known", "incr", "remap"):
+        n = len(re.findall(rf"Val result: mIoU/mAcc/Acc {tag} ", log))
+        expect(n == epochs, f"{tag} mIoU/mAcc/Acc logged after every epoch ({n})")
+    for line in re.findall(r"Val result: [^\n]*", log)[-3:]:
+        print("  " + line)
+    # 18 attention layers a Seg50: the student's train forward and backward
+    # on K4; the teacher's forward in each step and the student's val
+    # forwards on K3
+    fwd, bwd = launches["vector_attention_train"]
+    expect(fwd == bwd == 18 * steps,
+           f"K4: {fwd} forward + {bwd} backward launches = 18 x {steps} steps")
+    expect(launches["vector_attention"] == 18 * (steps + epochs),
+           f"K3: {launches['vector_attention']} launches = 18 x ({steps} teacher "
+           f"forwards + {epochs} val forwards)")
+    expect(launches["st_attention"] == launches["kpconv"] == launches["gva"] == 0,
+           "the incremental path launched no ST or PT-v2 kernel")
+    expect(launches["knn"] > 0 and launches["fps"] > 0,
+           f"K1 {launches['knn']} and K2 {launches['fps']} launches")
+
+    weight = os.path.join(save_path, "model", "model_last.pth")
+    expect(os.path.isfile(weight), "student checkpoint model_last.pth saved")
+    test_save = os.path.join(work, "exp_incr_test")
+    reset_launches()
+    log = run_tool("test_torch.py", [
+        "--config-file", incr_test_config(work), "--device", DEVICE, "--options",
+        f"weight={weight}", f"save_path={test_save}",
+        f"data.test.data_root={data_root}"])
+    forwards = log.count(", Batch: ")
+    tested = read_launches()
+    for tag in ("known", "incr", "remap"):
+        expect(f"Val result: mIoU/mAcc/Acc {tag} " in log,
+               f"IncrSegTester logged the {tag} triple")
+    for line in re.findall(r"Val result: [^\n]*", log):
+        print("  " + line)
+    expect(forwards > 0 and tested["vector_attention"] == 18 * forwards,
+           f"IncrSegTester: K3 {tested['vector_attention']} launches = 18 x "
+           f"{forwards} fragment forwards")
+    pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
+    expect(pred.shape == (n_val,) and pred.min() >= 0 and pred.max() < 15,
+           f"pred covers all {n_val} points of the val room, in [0, 15)")
+
+    # one incremental step, twice from one state: kernels, plain versions
+    cfg = default_config_parser(INCR_CONFIG, {
+        "data_root": data_root, "data.train.data_root": data_root,
+        "data.val.data_root": data_root, "save_path": os.path.join(work, "exp_incr_steps"),
+        "device": DEVICE, "batch_size": 2, "num_worker": 0, "evaluate": False,
+        "enable_amp": False, "hooks": [dict(type="IncrSegCheckpointLoader")],
+        "seed": SEED, "base_ckpt": base_weight, "optimizer.lr": STEPS_LR})
+    trainer = TRAINERS.build(dict(type="IncrSegTrainer", cfg=cfg))
+    trainer.hooks[0].before_train()
+    batch = trainer.device_batch(next(iter(trainer.train_loader)))
+    start = copy.deepcopy(trainer.student.state_dict())
+
+    def two_steps():
+        trainer.student.load_state_dict(start)
+        trainer.optimizer = trainer.build_optimizer()
+        trainer._host_step = 0
+        out = []
+        for _ in range(2):
+            trainer._dispatch_train(batch)
+            out.append(float(trainer.comm_info["model_output_dict"]["loss"]))
+        return out
+
+    reset_launches()
+    got = two_steps()
+    on_kernels = read_launches()
+    with _cuda.plain_versions():
+        ref = two_steps()
+    on_plain = read_launches()
+    print(f"  incremental steps: losses on kernels {got}, on plain versions {ref}")
+    expect(on_kernels["vector_attention_train"] == (36, 36)
+           and on_kernels["vector_attention"] == 36,
+           f"two steps on the kernels: K4 {on_kernels['vector_attention_train']}, "
+           f"K3 {on_kernels['vector_attention']} launches (18 x 2 each)")
+    expect(on_plain == on_kernels, "the steps on the plain versions launched no kernel")
+    for a, b in zip(got, ref):
+        expect(abs(a - b) <= TOL_STEPS * abs(b),
+               f"loss {a:.6f} within {TOL_STEPS} of plain {b:.6f}")
+
+    k3 = va.ATTENTION_LAUNCHES
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        amp = trainer.teacher_logits(batch).float()
+    expect(va.ATTENTION_LAUNCHES - k3 == 18, "the teacher under autocast ran K3 18 times")
+    with _cuda.plain_versions():
+        plain = trainer.teacher_logits(batch)
+    valid = batch["mask"]
+    lmax = float(plain[valid].abs().max())
+    err = float((amp - plain)[valid].abs().max())
+    agree = float((amp.argmax(-1) == plain.argmax(-1))[valid].float().mean())
+    print(f"  teacher logits under bfloat16 autocast (K3) against f32 plain: err "
+          f"{err:.3e} (max |logit| {lmax:.3e}), argmax agreement {agree:.4f}")
+    expect(err <= TOL_AMP_LOGITS * lmax,
+           f"teacher logits under autocast within {TOL_AMP_LOGITS} x max |logit|")
+    return launches, batch_size, peak
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -1668,20 +1911,41 @@ def main() -> int:
                "kpconv": check_kpconv(dev, rng, compiled),
                "gva": check_gva(dev, rng, compiled)}
 
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        print(f"  phase wall time: {walls[name]:.1f} s")
+        return out
+
     with tempfile.TemporaryDirectory() as work:
         print("[4] serving slice end to end")
-        serving = run_slice(work, CONFIG, "pt")
+        serving = phase("4", run_slice, work, CONFIG, "pt")
         print("[5] training slice end to end")
-        launches, data_root, batch_size, peak = run_training_slice(work)
+        launches, data_root, batch_size, peak, base_weight, n_val = phase(
+            "5", run_training_slice, work)
         print("[6] three train steps, kernels against plain versions")
-        compare_train_steps(work, data_root)
+        phase("6", compare_train_steps, work, data_root)
         print("[7] Stratified Transformer serving slice end to end")
-        st_serving = run_slice(work, ST_CONFIG, "st", ST_PER_FORWARD)
+        st_serving = phase("7", run_slice, work, ST_CONFIG, "st", ST_PER_FORWARD)
         print("[8] Point Transformer V2 serving slice end to end")
-        ptv2_serving = run_slice(work, PTV2_CONFIG, "ptv2", PTV2_PER_FORWARD,
-                                 PTV2_K7_BY_WIDTH)
+        ptv2_serving = phase("8", run_slice, work, PTV2_CONFIG, "ptv2",
+                             PTV2_PER_FORWARD, PTV2_K7_BY_WIDTH)
+        print("[9] Stratified Transformer open-set training slice end to end")
+        st_train, st_batch, st_peak = phase("9", run_st_training_slice, work,
+                                            data_root, n_val)
+        print("[10] incremental slice end to end")
+        incr_train, incr_batch, incr_peak = phase("10", run_incr_slice, work,
+                                                  data_root, n_val, base_weight)
+    print("  phase wall times (s): " + ", ".join(
+        f"[{k}] {v:.1f}" for k, v in walls.items()))
+    print(f"  training batch sizes (shipped 16) and peak device memory: PT-v1 "
+          f"{batch_size} ({peak:.2f} GiB), ST {st_batch} ({st_peak:.2f} GiB), "
+          f"incremental {incr_batch} ({incr_peak:.2f} GiB)")
 
-    main_runs = (launches, serving, st_serving, ptv2_serving)
+    main_runs = (launches, serving, st_serving, ptv2_serving, st_train, incr_train)
     for key in ("knn_pruned", "knn_brute"):
         n = sum(run[key] for run in main_runs)
         expect(n > 0, f"{key} kernel launched {n} times over the main-path runs")
@@ -1715,24 +1979,29 @@ def main() -> int:
     kernels = []
     for key, (name, source, replaces) in meta.items():
         r = results[key]
-        # launches: over the four main-path runs, each read from its own
+        # launches: over the six main-path runs, each read from its own
         # run with the counts set to 0 just before it: launches_train (the
-        # PT-v1 training slice; K4 forward + backward), launches_pt_serving,
+        # PT-v1 training slice; K4 forward + backward), launches_st_train
+        # (the ST training slice), launches_incr_train (the incremental
+        # slice; K4 forward + backward), launches_pt_serving,
         # launches_st_serving and launches_ptv2_serving (launches_serving:
         # the three serving slices); library_ms: no single PyTorch call
         # computes any of these functions (cdist + topk, a loop of argmax, a
         # chain of gathers and matmuls; scaled_dot_product_attention has no
         # per-pair table terms or MLPs and no gathered keys, a convolution
         # no kernel-point influences)
-        n_train = launches[key]
-        if isinstance(n_train, tuple):
-            n_train = sum(n_train)
+        n_train, n_st_train, n_incr = (
+            sum(n) if isinstance(n, tuple) else n
+            for n in (launches[key], st_train[key], incr_train[key]))
         n_pt, n_st = serving.get(key, 0), st_serving.get(key, 0)
         n_v2 = ptv2_serving.get(key, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": n_train + n_pt + n_st + n_v2,
+                        "launches": (n_train + n_pt + n_st + n_v2 + n_st_train
+                                     + n_incr),
                         "launches_train": n_train,
+                        "launches_st_train": n_st_train,
+                        "launches_incr_train": n_incr,
                         "launches_pt_serving": n_pt,
                         "launches_st_serving": n_st,
                         "launches_ptv2_serving": n_v2,

@@ -333,3 +333,19 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     tree = unflatten_tree(flat)
     return {"params": tree.get("params", {}),
             "batch_stats": tree.get("batch_stats", {})}
+
+
+def backbone_state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """A bare backbone's state_dict (no ``backbone.`` prefix: the incremental
+    learner's student) -> its JAX tree, the ``backbone_module`` subtree of a
+    segmentor's."""
+    tree = state_dict_to_jax({f"backbone.{k}": v for k, v in state_dict.items()})
+    return {coll: tree[coll].get("backbone_module", {}) for coll in tree}
+
+
+def jax_to_backbone_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A bare backbone's JAX tree -> its state_dict (no ``backbone.``
+    prefix)."""
+    sd = jax_to_state_dict({coll: {"backbone_module": tree.get(coll, {})}
+                            for coll in ("params", "batch_stats")})
+    return {k[len("backbone."):]: v for k, v in sd.items()}

@@ -7,5 +7,7 @@ from .misc import (
     CheckpointLoader,
     OpenSegCheckpointSaver,
     OpenSegCheckpointLoader,
+    IncrSegCheckpointSaver,
+    IncrSegCheckpointLoader,
 )
-from .evaluator import SemSegEvaluator, OpenSegEvaluator
+from .evaluator import SemSegEvaluator, OpenSegEvaluator, IncrSegEvaluator

@@ -1,6 +1,6 @@
 """Per-epoch evaluation hooks (counterpart of
-``pointcloudpdf_tpu/engines/hooks/evaluator.py``: ``SemSegEvaluator`` and
-``OpenSegEvaluator``).
+``pointcloudpdf_tpu/engines/hooks/evaluator.py``: ``SemSegEvaluator``,
+``OpenSegEvaluator`` and ``IncrSegEvaluator``).
 
 The forward runs on the trainer's device; the IoU histogram and the
 AUPR/AUROC records are numpy on the host, with padded points carrying
@@ -218,3 +218,107 @@ class OpenSegEvaluator(HookBase):
         if isinstance(best, dict):
             for name, value in best.items():
                 self.trainer.logger.info(f"Best {name}: {value:.4f}")
+
+
+@HOOKS.register_module()
+class IncrSegEvaluator(HookBase):
+    """Incremental-learning evaluation: known/incr/remap metric triple.
+
+    Reference: pointcept/engines/hooks/evaluator.py:232-405.  Targets are
+    ``segment_incr_remap`` over base+new classes; mIoU is reported for the
+    retained base classes (known), the newly learned classes (incr), and
+    the remapped union (remap).
+    """
+
+    def before_train(self):
+        cfg = self.trainer.cfg
+        self.base_num_classes = cfg.data.num_classes
+        self.remap = dict(cfg.incr_label_remap)
+        self.remap_num_classes = self.base_num_classes + len(self.remap)
+        self.ignore_index = cfg.data.get("ignore_index", -1)
+        select = cfg.get("incr_label_select", list(self.remap.keys()))
+        self.mask_known, self.incr_label_idx, self.mask_incr_remap = (
+            incr_class_sets(self.remap, select, self.base_num_classes))
+        self.map_reverse = {v: k for k, v in self.remap.items()}
+
+    def after_epoch(self):
+        if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader:
+            self.eval()
+
+    def eval(self):
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        k = self.remap_num_classes
+        totals = np.zeros((3, k), np.float64)
+        loss_sum, loss_cnt = 0.0, 0
+
+        for i, input_dict in enumerate(trainer.val_loader):
+            batch = trainer.device_batch(input_dict)
+            out = trainer.eval_step(batch)
+            totals += _batch_counts(out, batch["segment_incr_remap"],
+                                    batch["mask"], k, self.ignore_index)
+            loss = float(out["loss"])
+            loss_sum += loss
+            loss_cnt += 1
+            trainer.logger.info(
+                f"Test: [{i + 1}/{len(trainer.val_loader)}] Loss {loss:.4f}"
+            )
+
+        totals = np.sum(np.stack(comm.all_gather(totals)), axis=0)
+        inter, union, target = totals
+        iou_class = inter / np.maximum(union, 1e-10)
+        acc_class = inter / np.maximum(target, 1e-10)
+        known, incr, remap = (
+            metric_triple(inter, target, iou_class, acc_class, sel)
+            for sel in (np.where(self.mask_known)[0],
+                        np.asarray(self.incr_label_idx),
+                        np.where(self.mask_incr_remap)[0]))
+        for tag, m in (("known", known), ("incr", incr), ("remap", remap)):
+            trainer.logger.info(
+                f"Val result: mIoU/mAcc/Acc {tag} "
+                f"{m[0]:.4f}/{m[1]:.4f}/{m[2]:.4f}."
+            )
+        names = trainer.cfg.data.get("names", list(range(k)))
+        for c in range(k):
+            base_c = self.map_reverse.get(c, c)
+            prefix = "Increment " if c >= self.base_num_classes else ""
+            trainer.logger.info(
+                f"{prefix}Class_{c}-{names[base_c]} Result: iou/accuracy "
+                f"{iou_class[c]:.4f}/{acc_class[c]:.4f}"
+            )
+        epoch = trainer.epoch + 1
+        if trainer.writer is not None:
+            trainer.writer.add_scalar("val/loss", loss_sum / max(loss_cnt, 1), epoch)
+            for tag, m in (("", known), ("_incr", incr), ("_remap", remap)):
+                trainer.writer.add_scalar(f"val/mIoU{tag}", m[0], epoch)
+                trainer.writer.add_scalar(f"val/mAcc{tag}", m[1], epoch)
+                trainer.writer.add_scalar(f"val/allAcc{tag}", m[2], epoch)
+        trainer.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        trainer.comm_info["current_metric_value"] = [known[0], incr[0], remap[0]]
+        trainer.comm_info["current_metric_name"] = [
+            "mIoU_known", "mIoU_incr", "mIoU_remap"
+        ]
+
+    def after_train(self):
+        best = self.trainer.best_metric_value
+        if isinstance(best, dict):
+            for name, value in best.items():
+                self.trainer.logger.info(f"Best {name}: {value:.4f}")
+
+
+def incr_class_sets(remap, select, base_num_classes):
+    """The incremental metrics' class sets: the known (base) classes left
+    after the remap, the new classes' ids, and the remapped union."""
+    remap_num_classes = base_num_classes + len(remap)
+    mask_known = ~selected_mask(list(remap.keys()), base_num_classes)
+    incr_label_idx = [remap[k] for k in select if k in remap]
+    mask_incr_remap = ~selected_mask(
+        list(remap.keys()) + list(remap.values()), remap_num_classes,
+    ) | selected_mask(incr_label_idx, remap_num_classes)
+    return mask_known, incr_label_idx, mask_incr_remap
+
+
+def metric_triple(inter, target, iou_class, acc_class, sel):
+    """(mIoU, mAcc, Acc) over the classes ``sel``."""
+    return (float(np.mean(iou_class[sel])), float(np.mean(acc_class[sel])),
+            float(inter[sel].sum() / max(target[sel].sum(), 1e-10)))

@@ -1,6 +1,6 @@
 # Copied from pointcloudpdf_tpu/engines/hooks/misc.py (the timer, writer and
-# checkpoint hooks; the trainer's state_dict is already host numpy, so
-# to_host is gone); keep in step.
+# checkpoint hooks, the incremental ones included; the trainer's state_dict
+# is already host numpy, so to_host is gone); keep in step.
 """Misc hooks: timing, logging, checkpoint save/load.
 
 Equivalents of the reference hook zoo (pointcept/engines/hooks/misc.py):
@@ -311,3 +311,111 @@ class OpenSegCheckpointLoader(HookBase):
             trainer.best_metric_value = best if isinstance(best, dict) else {}
             trainer.resume_optimizer_state(state)
             trainer.logger.info(f"Resuming at epoch {trainer.start_epoch}")
+
+
+@HOOKS.register_module()
+class IncrSegCheckpointSaver(OpenSegCheckpointSaver):
+    """Multi-metric saver for incremental training; adds late-epoch best
+    snapshots (reference misc.py:324-451 ``tracked_epoch`` variants)."""
+
+    def __init__(self, save_freq=None, tracked_best_metrics=None,
+                 tracked_epoch=None):
+        super().__init__(save_freq)
+        self.tracked_best_metrics = tracked_best_metrics
+        self.tracked_epoch = tracked_epoch
+        self._late_best = {}
+
+    def after_epoch(self):
+        super().after_epoch()
+        if not comm.is_main_process() or self.tracked_epoch is None:
+            return
+        trainer = self.trainer
+        if trainer.epoch + 1 < self.tracked_epoch:
+            return
+        values = trainer.comm_info.get("current_metric_value")
+        names = trainer.comm_info.get("current_metric_name")
+        if values is None or names is None:
+            return
+        save_dir = os.path.join(trainer.cfg.save_path, "model")
+        last_path = os.path.join(save_dir, "model_last.pth")
+        for name, value in zip(names, values):
+            if self.tracked_best_metrics and name not in self.tracked_best_metrics:
+                continue
+            if np.isfinite(value) and value > self._late_best.get(name, -np.inf):
+                self._late_best[name] = value
+                shutil.copyfile(
+                    last_path,
+                    os.path.join(
+                        save_dir, f"model_best_{name}_late{self.tracked_epoch}.pth"
+                    ),
+                )
+
+
+@HOOKS.register_module()
+class IncrSegCheckpointLoader(HookBase):
+    """Base->incremental weight transfer.
+
+    Reference: pointcept/engines/hooks/misc.py:596-725.  The base (teacher)
+    checkpoint loads into the frozen teacher; with
+    ``load_base_weight_to_incr_learner`` its backbone also initializes the
+    student with the class-head rows trimmed/partial-copied
+    (``trim_base_weight_head``) or only exact-shape matches kept
+    (``reserve_matched``).
+    """
+
+    def __init__(self, keywords="", replacement=None, strict=False):
+        self.keywords = keywords
+        self.replacement = replacement if replacement is not None else keywords
+        self.strict = strict
+
+    def before_train(self):
+        trainer = self.trainer
+        cfg = trainer.cfg
+        if cfg.get("incr_resume") and cfg.get("resume"):
+            raise RuntimeError(
+                "Incremental model cannot resume from base and incremental "
+                "checkpoints at the same time."
+            )
+
+        base_state = None
+        base_path = cfg.get("base_ckpt") or cfg.get("weight")
+        if base_path:
+            if not os.path.isfile(base_path):
+                raise FileNotFoundError(f"base checkpoint not found: {base_path}")
+            trainer.logger.info(f"Loading base checkpoint: {base_path}")
+            payload = load_checkpoint(base_path)
+            base_state = dict(payload["state"])
+            params = base_state.get("params", {})
+            if isinstance(params, dict) and "model" in params:
+                # open-set checkpoint: teacher = its model subtree
+                base_state = dict(
+                    params=params["model"],
+                    batch_stats=base_state.get("batch_stats", {}).get("model", {}),
+                )
+            trainer.load_teacher_state(base_state)
+
+        if cfg.get("incr_resume") and cfg.get("incr_ckpt"):
+            trainer.logger.info(f"Resuming student from {cfg.incr_ckpt}")
+            payload = load_checkpoint(cfg.incr_ckpt)
+            trainer.load_state_dict(payload["state"])
+            trainer.start_epoch = payload.get("epoch", 0)
+            best = payload.get("best_metric_value", {})
+            trainer.best_metric_value = best if isinstance(best, dict) else {}
+            trainer.resume_optimizer_state(payload["state"])
+        elif cfg.get("load_base_weight_to_incr_learner", True) and base_state:
+            # student init from base backbone with head trim / reserve-match
+            process = cfg.get("base_weight_process_func", "trim_base_weight_head")
+            partial = process == "trim_base_weight_head"
+            trainer.logger.info(
+                f"Loading base weights into the student ({process}) ..."
+            )
+            trainer.load_state_dict(
+                {
+                    "params": {"incr": base_state.get("params", {})},
+                    "batch_stats": {"incr": base_state.get("batch_stats", {})},
+                },
+                # DefaultSegmentor nests the backbone under backbone_module;
+                # the student tree is the bare backbone
+                rewrite={"backbone_module/": ""},
+                allow_partial_rows=partial,
+            )

@@ -1,7 +1,7 @@
 """Testers: full-scene inference via complementary voxel fragments.
 
 Counterpart of ``pointcloudpdf_tpu/engines/test.py`` (``TesterBase``,
-``SemSegTester``, ``OpenSegTester``) in one process: each fragment is
+``SemSegTester``, ``OpenSegTester``, ``IncrSegTester``) in one process: each fragment is
 padded to its bucket, run through the model under
 ``torch.inference_mode()`` on ``cfg.device``, and its softmax vote / score
 scatter-mean back to full resolution happens on the host in numpy.  The
@@ -20,7 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..bridge import jax_to_state_dict
+from ..bridge import jax_to_backbone_state_dict, jax_to_state_dict
 from ..datasets import build_dataset
 from ..datasets.utils import padded_collate_fn
 from ..models import build_model
@@ -34,6 +34,7 @@ from ..utils.misc import (
     selected_mask,
 )
 from ..utils.registry import Registry
+from .hooks.evaluator import incr_class_sets, metric_triple
 
 TESTERS = Registry("testers")
 
@@ -378,6 +379,115 @@ class OpenSegTester(TesterBase):
                 f"{iou_class[c]:.4f}/{acc_class[c]:.4f}"
             )
         self.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+
+
+@TESTERS.register_module()
+class IncrSegTester(TesterBase):
+    """Incremental-learning tester: fragment voting with the student
+    (base+new classes), known/incr/remap metric triple
+    (reference test.py:512-894)."""
+
+    def __init__(self, cfg):
+        from ..incr_learners import build_incremental_learner
+
+        # built before super().__init__ so build_model (called there) hands
+        # on this learner's student instead of building a second one
+        self.incr_learner = build_incremental_learner(cfg.incremental_learner)
+        super().__init__(cfg)
+        self.remap = dict(cfg.incr_label_remap)
+        self.base_num_classes = cfg.data.num_classes
+        self.remap_num_classes = self.base_num_classes + len(self.remap)
+        select = cfg.get("incr_label_select", list(self.remap.keys()))
+        self.mask_known, self.incr_label_idx, self.mask_incr_remap = (
+            incr_class_sets(self.remap, select, self.base_num_classes))
+
+    def build_model(self):
+        # the tested model is the student of the learner built in __init__
+        return self.incr_learner.model
+
+    def checkpoint_model_state(self):
+        state = self.load_checkpoint_payload()["state"]
+        params = state["params"]
+        stats = state.get("batch_stats", {})
+        if isinstance(params, dict) and "incr" in params:
+            return params["incr"], stats.get("incr", {})
+        return params, stats
+
+    def load_weights(self):
+        params, stats = self.checkpoint_model_state()
+        self.model.load_state_dict(
+            jax_to_backbone_state_dict({"params": params, "batch_stats": stats}),
+            strict=True)
+
+    def forward(self, batch: Dict) -> Dict:
+        out = self.model(batch)
+        return {"seg_logits": out[0] if isinstance(out, tuple) else out}
+
+    def test(self):
+        logger = self.logger
+        cfg = self.cfg
+        k = self.remap_num_classes
+        ignore_index = cfg.data.get("ignore_index", -1)
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        save_path = make_dirs(os.path.join(cfg.save_path, "result"))
+        # remap lookup for the full-resolution ground truth
+        lut_size = max([k] + [o + 1 for o in self.remap])
+        lut = np.arange(lut_size)
+        for old, new in self.remap.items():
+            lut[old] = new
+        record = {}
+
+        for idx in range(len(self.test_dataset)):
+            data_dict = self.test_dataset[idx]
+            fragment_list = data_dict.pop("fragment_list")
+            segment = np.asarray(data_dict.pop("segment")).reshape(-1)
+            data_name = data_dict.pop("name")
+            pred_save_path = os.path.join(save_path, f"{data_name}_pred.npy")
+            if os.path.isfile(pred_save_path):
+                pred = np.load(pred_save_path)
+            else:
+                vote = np.zeros((segment.size, k), np.float32)
+                for i, fragment in enumerate(fragment_list):
+                    index = np.asarray(fragment["index"]).reshape(-1)
+                    out = self.forward_fragment(fragment)
+                    np.add.at(vote, index, _softmax_np(out["seg_logits"]))
+                    logger.info(
+                        f"Test: {idx + 1}/{len(self.test_dataset)}-{data_name}, "
+                        f"Batch: {i}/{len(fragment_list)}"
+                    )
+                pred = vote.argmax(-1)
+                np.save(pred_save_path, pred)
+            if "origin_segment" in data_dict:
+                pred = pred[data_dict["inverse"]]
+                segment = np.asarray(data_dict["origin_segment"]).reshape(-1)
+            target = np.where(
+                segment == ignore_index, ignore_index,
+                lut[np.clip(segment, 0, lut_size - 1)],
+            )
+            inter, union, tgt = intersection_and_union_np(
+                pred, target, k, ignore_index
+            )
+            record[data_name] = dict(intersection=inter, union=union,
+                                     target=tgt)
+            logger.info(f"Test: {data_name} [{idx + 1}/{len(self.test_dataset)}]")
+
+        inter = np.sum([m["intersection"] for m in record.values()], axis=0)
+        union = np.sum([m["union"] for m in record.values()], axis=0)
+        target = np.sum([m["target"] for m in record.values()], axis=0)
+        iou_class = inter / np.maximum(union, 1e-10)
+        acc_class = inter / np.maximum(target, 1e-10)
+        for tag, sel in (
+            ("known", np.where(self.mask_known)[0]),
+            ("incr", np.asarray(self.incr_label_idx)),
+            ("remap", np.where(self.mask_incr_remap)[0]),
+        ):
+            m_iou, m_acc, acc = metric_triple(inter, target, iou_class,
+                                              acc_class, sel)
+            logger.info(
+                f"Val result: mIoU/mAcc/Acc {tag} "
+                f"{m_iou:.4f}/{m_acc:.4f}/{acc:.4f}."
+            )
+        logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
 
 
 def _softmax_np(x: np.ndarray, axis: int = -1) -> np.ndarray:

@@ -1,13 +1,16 @@
 """Trainers: hook-driven epoch loops over an eager PyTorch train step.
 
 Counterpart of ``pointcloudpdf_tpu/engines/train.py`` (``TrainerBase``,
-``Trainer`` / ``DefaultTrainer``, ``OpenSegTrainer``) for one process on one
-device.  The JAX ``TrainState`` pytree becomes the modules, a
+``Trainer`` / ``DefaultTrainer``, ``OpenSegTrainer``, ``IncrSegTrainer``)
+for one process on one device.  The JAX ``TrainState`` pytree becomes the modules, a
 ``torch.optim`` optimizer and a host step counter; the jitted step becomes
 forward + loss + backward + ``optimizer.step()``; the learning rate is set
 on every parameter group from the schedule before each step.  The hook
 lifecycle (before/after train/epoch/step) and the ``comm_info`` keys match
-the reference.  Checkpoints keep the JAX package's tree
+the reference.  Drop path draws from the trainer's own generator, seeded
+at each step from ``(seed, step)`` as the JAX step folds the step into its
+dropout key, so a resumed run replays the same draws; the global RNG is
+not touched.  Checkpoints keep the JAX package's tree
 (``state = {params, batch_stats, opt_state, step}`` through ``bridge``), so
 either package's testers load what this trainer saves.
 """
@@ -21,10 +24,12 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..bridge import jax_to_state_dict, state_dict_to_jax
+from ..bridge import (backbone_state_dict_to_jax, jax_to_backbone_state_dict,
+                      jax_to_state_dict, state_dict_to_jax)
 from ..datasets import build_dataset, padded_collate_fn
 from ..datasets.loader import DataLoader, Subset
 from ..models import build_model
+from ..models.default import takes_generator
 from ..utils import comm
 from ..utils.checkpoint import load_weights_into
 from ..utils.events import EventStorage
@@ -80,6 +85,15 @@ class TrainerBase:
         raise NotImplementedError
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The drop-path generator's seed at host step ``step``, the JAX step's
+    ``fold_in(PRNGKey(seed), step + 1)``: both numbers hashed into 63 bits
+    (a CPU generator keeps the low 32 of them, so every bit must mix)."""
+    state = np.random.SeedSequence([int(seed), int(step) + 1]).generate_state(
+        1, np.uint64)
+    return int(state[0]) & ((1 << 63) - 1)
+
+
 def _to_numpy(tree):
     """Tensors of a nested dict/list -> numpy (host) arrays."""
     if isinstance(tree, torch.Tensor):
@@ -122,6 +136,7 @@ class Trainer(TrainerBase):
         self.scheduler = self.build_scheduler()
         self.optimizer = self.build_optimizer()
         self._host_step = 0
+        self.generator = torch.Generator(device=self.device)
         n_params = sum(p.numel() for _, p in self.named_parameters())
         self.logger.info(f"Initialized state: {n_params / 1e6:.2f}M params")
         self.register_hooks(cfg.get("hooks"))
@@ -210,11 +225,20 @@ class Trainer(TrainerBase):
         return contextlib.nullcontext()
 
     # -- state management ----------------------------------------------------
+    def to_jax_tree(self, name: str, state_dict: Dict) -> Dict:
+        """A state_dict of the module ``name`` -> its ``{params,
+        batch_stats}`` tree in the JAX layout."""
+        return state_dict_to_jax(state_dict)
+
+    def from_jax_tree(self, name: str, tree: Dict) -> Dict:
+        """A JAX-layout tree -> the state_dict of the module ``name``."""
+        return jax_to_state_dict(tree)
+
     def state_dict(self) -> Dict:
         """Host numpy trees in the JAX package's checkpoint layout."""
         params, stats = {}, {}
         for name, module in self.modules().items():
-            tree = state_dict_to_jax(module.state_dict())
+            tree = self.to_jax_tree(name, module.state_dict())
             if name:
                 params[name], stats[name] = tree["params"], tree["batch_stats"]
             else:
@@ -242,7 +266,7 @@ class Trainer(TrainerBase):
         for name, module in self.modules().items():
             tree = ({k: merged[k].get(name, {}) for k in merged} if name
                     else merged)
-            module.load_state_dict(jax_to_state_dict(tree), strict=True)
+            module.load_state_dict(self.from_jax_tree(name, tree), strict=True)
 
     def resume_optimizer_state(self, state: Dict):
         if "opt_state" in state:
@@ -273,13 +297,20 @@ class Trainer(TrainerBase):
         for module in self.modules().values():
             module.train(training)
 
+    def forward_train(self, model, batch: Dict):
+        """``model(batch)`` in a train step: a model that takes a generator
+        (drop path) gets the trainer's."""
+        if takes_generator(model):
+            return model(batch, generator=self.generator)
+        return model(batch)
+
     def train_step(self, batch: Dict) -> Dict:
         """Forward, loss, backward and one optimizer step; the output dict
         holds 0-d tensors (no host synchronisation here)."""
         self._train_mode(True)
         self.optimizer.zero_grad(set_to_none=True)
         with self._amp():
-            out = self.model(batch)
+            out = self.forward_train(self.model, batch)
             loss = self.model.loss(out["seg_logits"], batch["segment"])
         loss.backward()
         self.optimizer.step()
@@ -296,6 +327,8 @@ class Trainer(TrainerBase):
 
     def _dispatch_train(self, batch, *args):
         lr = self._set_lr()
+        self.generator.manual_seed(step_seed(self.cfg.get("seed") or 0,
+                                             self._host_step))
         out = self.train_step(batch, *args)
         self._host_step += 1
         self.comm_info["model_output_dict"] = out
@@ -394,7 +427,7 @@ class OpenSegTrainer(Trainer):
             self._rec_module.requires_grad_(not frozen)
         self.optimizer.zero_grad(set_to_none=True)
         with self._amp():
-            out = self.model(batch)
+            out = self.forward_train(self.model, batch)
             seg_logits = out["seg_logits"]
             seg_loss = self.model.loss(seg_logits, batch["segment"])
             parts = {"seg_loss": seg_loss}
@@ -549,3 +582,78 @@ class OpenSegTrainer(Trainer):
                 self._call_hooks("after_train")
             return
         super().train()
+
+
+@TRAINERS.register_module("IncrSegTrainer")
+class IncrSegTrainer(Trainer):
+    """Incremental-learning trainer: a frozen teacher distils into an
+    extended student.
+
+    Reference: pointcept/engines/train.py:502-566.  ``self.model`` is the
+    base (teacher) segmentor: loaded from the base checkpoint
+    (``load_teacher_state``), kept in eval mode, never optimised, its
+    forward under ``torch.no_grad()``.  The student (the learner's
+    ``model``, a bare backbone) is the only module the optimizer and the
+    checkpoints hold, under ``incr`` as in the JAX package.
+    """
+
+    def __init__(self, cfg):
+        from ..incr_learners import build_incremental_learner
+
+        self.incr_learner = build_incremental_learner(cfg.incremental_learner)
+        self.student = self.incr_learner.model.to(
+            resolve_device(cfg.get("device", "cuda")))
+        super().__init__(cfg)
+        self.model.requires_grad_(False)
+        self.model.eval()
+        self.best_metric_value = {}
+
+    def modules(self):
+        return {"incr": self.student}
+
+    def to_jax_tree(self, name, state_dict):
+        return backbone_state_dict_to_jax(state_dict)
+
+    def from_jax_tree(self, name, tree):
+        return jax_to_backbone_state_dict(tree)
+
+    def load_teacher_state(self, state: Dict):
+        """Merge a base checkpoint's ``{params, batch_stats}`` (a segmentor
+        tree) into the teacher, matching paths only."""
+        own = state_dict_to_jax(self.model.state_dict())
+        merged = load_weights_into(
+            own, {"params": state.get("params", {}),
+                  "batch_stats": state.get("batch_stats", {})})
+        self.model.load_state_dict(jax_to_state_dict(merged), strict=True)
+
+    @staticmethod
+    def logits_of(out):
+        if isinstance(out, tuple):
+            return out[0]
+        if isinstance(out, dict):
+            return out["seg_logits"]
+        return out
+
+    def teacher_logits(self, batch: Dict) -> torch.Tensor:
+        with torch.no_grad():
+            return self.logits_of(self.model(batch))
+
+    def train_step(self, batch: Dict) -> Dict:
+        self._train_mode(True)
+        self.optimizer.zero_grad(set_to_none=True)
+        with self._amp():
+            student = self.logits_of(self.forward_train(self.student, batch))
+            loss = self.incr_learner.distill_loss(
+                student, self.teacher_logits(batch), batch["segment_incr"],
+                batch["mask"])
+        loss.backward()
+        self.optimizer.step()
+        return {"loss": loss.detach()}
+
+    def eval_step(self, batch: Dict) -> Dict:
+        self._train_mode(False)
+        with torch.inference_mode():
+            seg_logits = self.logits_of(self.student(batch))
+            loss = self.incr_learner.eval_loss(seg_logits,
+                                               batch["segment_incr_remap"])
+        return {"seg_logits": seg_logits, "loss": loss}

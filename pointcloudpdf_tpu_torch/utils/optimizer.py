@@ -6,11 +6,14 @@ it, as the JAX package's optax chains do; its SGD is weight decay ->
 momentum trace -> lr, which is ``torch.optim.SGD``'s order.  Parameter
 groups are keyword matches over ``named_parameters`` (the reference's
 ``param_dicts``); a group's own ``lr`` is kept as ``lr_scale`` = lr /
-base lr, the factor the trainer applies to the schedule each step.
+base lr, the factor the trainer applies to the schedule each step.  A
+config key the optimizer does not take (``momentum`` left in an AdamW
+dict by a base config's SGD) is dropped with a warning.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Iterable, List, Optional, Tuple
 
 import torch
@@ -32,6 +35,12 @@ def build_optimizer(cfg, named_parameters: Iterable[Tuple[str, torch.Tensor]],
     entry ``{keyword, lr?, ...}`` takes the parameters whose name holds
     the keyword (first match wins) into a group of its own."""
     cfg = dict(cfg)
+    accepted = inspect.signature(OPTIMIZERS.get(cfg["type"]).__init__).parameters
+    ignored = sorted(k for k in cfg if k != "type" and k not in accepted)
+    if ignored:
+        get_root_logger().warning(
+            f"optimizer {cfg['type']} takes no {ignored}: ignored")
+        cfg = {k: v for k, v in cfg.items() if k not in ignored}
     base_lr = cfg["lr"]
     named = list(named_parameters)
     groups = [dict(params=[], lr_scale=1.0)]

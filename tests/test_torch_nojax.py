@@ -2,7 +2,8 @@
 none): with ``import jax`` / ``import flax`` made to fail, the whole
 package imports, the shipped open-set configs load, a Seg26 forward, a
 narrow Stratified Transformer forward (ST-v1m1 + ST recognizer) and a narrow
-PT-v2m2 forward run on the CPU and the open-set trainer takes one training step.  The port's
+PT-v2m2 forward run on the CPU, the open-set trainer takes one training step
+and the incremental trainer one distillation step.  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
 """
@@ -132,6 +133,32 @@ out = trainer.comm_info["model_output_dict"]
 assert all(np.isfinite(float(out[k])) for k in ("loss", "seg_loss", "loss_rec"))
 assert not torch.equal(before, trainer.model.backbone.cls[3].weight)
 assert trainer.state_dict()["step"] == 1
+
+# one incremental step of the shipped incr config at Seg26: a frozen teacher
+# (13 classes) distilled into a student with two more
+from pointcloudpdf_tpu_torch.datasets import ScanNet200Dataset, ScanNetDataset
+from pointcloudpdf_tpu_torch.incr_learners import PointPdfIncrV1
+
+incr_cfg = default_config_parser(
+    ROOT + "/configs/s3dis/incrseg-pt-v1-0-pointpdf-v1m1-base.py")
+assert incr_cfg.train.type == "IncrSegTrainer" and incr_cfg.test.type == "IncrSegTester"
+incr_cfg.model.backbone.type = "PointTransformer-Seg26"
+incr_cfg.incremental_learner.backbone.type = "PointTransformer-Seg26"
+incr_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                          "enable_amp": False, "evaluate": False, "hooks": [],
+                          "epoch": 2, "eval_epoch": 2})
+incr_cfg.data.train = dict(type="NoJaxScenes")
+incr = TRAINERS.build(dict(type="IncrSegTrainer", cfg=incr_cfg))
+assert isinstance(incr.incr_learner, PointPdfIncrV1)
+input_dict["segment_incr"] = np.where(segment == 5, 13, np.where(segment == 9, 14, -1))
+teacher = {k: v.clone() for k, v in incr.model.state_dict().items()}
+before = incr.student.cls[3].weight.detach().clone()
+assert before.shape[0] == 15
+incr._dispatch_train(incr.device_batch(input_dict))
+assert np.isfinite(float(incr.comm_info["model_output_dict"]["loss"]))
+assert not torch.equal(before, incr.student.cls[3].weight)
+assert all(torch.equal(v, incr.model.state_dict()[k]) for k, v in teacher.items())
+assert set(incr.state_dict()["params"]) == {"incr"}
 assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)
 print("NOJAX_OK")
 """

@@ -191,7 +191,7 @@ def port_gradients(trainer, step):
             tensors = dict(module.state_dict())
             tensors.update({n: p.grad.detach().clone()
                             for n, p in module.named_parameters()})
-            seen[name] = state_dict_to_jax(tensors)["params"]
+            seen[name] = trainer.to_jax_tree(name, tensors)["params"]
         return optimizer_step()
 
     trainer.optimizer.step = recording_step

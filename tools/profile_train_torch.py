@@ -1,16 +1,22 @@
 """Where one training step of the PyTorch port goes, on one GPU.
 
-    python3 tools/profile_train_torch.py [--batch-size 16] [--steps 3] [--out FILE]
+    python3 tools/profile_train_torch.py [--workload pt|st|incr] [--batch-size 16]
+        [--steps 3] [--out FILE]
 
-Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``), an
-``OpenSegTrainer`` on the shipped open-set config (Seg50 + PDF recognizer,
-autocast as shipped) and prints, for one fixed batch: milliseconds per
-train step (CUDA events and host clock), the device's busy time and idle
-share and its split by kind of kernel (``torch.profiler``), the forward
-share of the batch-statistics pass (CUDA events around
-``attention_train_affines``), peak device memory, and the host side of the
-pseudo-label pipeline (score pass, fetch, graph stage) beside the train
-step it is meant to hide behind.  ``--out`` also writes the numbers as
+Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``) and a trainer
+on a shipped config at full width: ``pt`` (default) ``OpenSegTrainer`` on
+the PT-v1 open-set config (Seg50 + PDF recognizer), ``st`` the same trainer
+on the S3DIS Stratified Transformer config (ST-v1m1 + ST recognizer, AdamW,
+drop path 0.3), ``incr`` ``IncrSegTrainer`` on the incremental config (a
+seeded Seg50 teacher, Seg50 student with two more classes); autocast as
+each config ships.  Prints, for one fixed batch: milliseconds per train step
+(CUDA events and host clock), the device's busy time and idle share and its
+split by kind of kernel (``torch.profiler``), every kernel's launches in a
+step, peak device memory; for ``pt`` also the forward share of the
+batch-statistics pass (CUDA events around ``attention_train_affines``); for
+``pt`` and ``st`` the host side of the pseudo-label pipeline (score pass,
+fetch, graph stage) beside the train step it is meant to hide behind; for
+``incr`` the teacher's forward alone.  ``--out`` also writes the numbers as
 JSON.  Needs a CUDA device.
 """
 
@@ -33,6 +39,7 @@ def main():
     import torch
 
     parser = argparse.ArgumentParser()
+    parser.add_argument("--workload", choices=("pt", "st", "incr"), default="pt")
     parser.add_argument("--batch-size", type=int, default=16)
     parser.add_argument("--out", default=None, help="write the numbers here as JSON")
     parser.add_argument("--steps", type=int, default=3)
@@ -48,7 +55,12 @@ def main():
     from pointcloudpdf_tpu_torch.ops import vector_attention as va
     from pointcloudpdf_tpu_torch.models.point_transformer import modules
 
-    result = {"card": card, "batch_size": args.batch_size, "amp": not args.no_amp}
+    config, trainer_type = {
+        "pt": (chip_smoke.CONFIG, "OpenSegTrainer"),
+        "st": (chip_smoke.ST_CONFIG, "OpenSegTrainer"),
+        "incr": (chip_smoke.INCR_CONFIG, "IncrSegTrainer")}[args.workload]
+    result = {"card": card, "workload": args.workload, "config": os.path.relpath(config, ROOT),
+              "batch_size": args.batch_size}
     with tempfile.TemporaryDirectory() as work:
         data_root = os.path.join(work, "s3dis")
         rng = np.random.RandomState(1)
@@ -57,18 +69,23 @@ def main():
         for i in range(2 * args.batch_size):
             chip_smoke.synthetic_room(rng, os.path.join(
                 data_root, chip_smoke.TRAIN_AREAS[i % 5], f"office_{i}.npz"))
-        cfg = default_config_parser(chip_smoke.CONFIG, {
+        options = {
             "data_root": data_root, "data.train.data_root": data_root,
             "data.val.data_root": data_root, "save_path": os.path.join(work, "exp"),
             "device": "cuda", "batch_size": args.batch_size, "num_worker": 0,
-            "evaluate": False, "hooks": [], "seed": 0,
-            "enable_amp": not args.no_amp})
+            "evaluate": False, "hooks": [], "seed": 0}
+        if args.no_amp:
+            options["enable_amp"] = False
+        cfg = default_config_parser(config, options)
+        result["amp"] = bool(cfg.get("enable_amp"))
         torch.manual_seed(0)
-        trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+        trainer = TRAINERS.build(dict(type=trainer_type, cfg=cfg))
         loader = iter(trainer.train_loader)
         input_dict = next(loader)
         batch = trainer.device_batch(input_dict)
-        rec_w = trainer.recognizer.alpha
+        open_set = trainer_type == "OpenSegTrainer"
+        # past start_epoch: the recognizer's loss on
+        step_args = (trainer.recognizer.alpha,) if open_set else ()
         result["shape"] = list(batch["coord"].shape)
         result["valid_points"] = input_dict["count"].tolist()
         print(f"batch {result['shape']}, valid points {result['valid_points']}")
@@ -86,7 +103,7 @@ def main():
             return out
 
         def step():
-            trainer._dispatch_train(batch, rec_w)
+            trainer._dispatch_train(batch, *step_args)
 
         step()  # warm-up: builds the kernels, allocates
         torch.cuda.synchronize()
@@ -111,8 +128,27 @@ def main():
               f"stats pass forward {result['stats_pass_forward_ms']:.1f} ms; "
               f"peak memory {result['peak_memory_gib']:.2f} GiB")
 
+        chip_smoke.reset_launches()
+        step()
+        torch.cuda.synchronize()
+        result["launches_a_step"] = chip_smoke.read_launches()
+        print(f"launches a step: {result['launches_a_step']}")
         result.update(profile_call(step, host_ms, "step", top=16))
         result["knn_calls_a_step"] = knn_calls(step)
+        torch.cuda.synchronize()  # the timings below start on an idle device
+
+        if not open_set:
+            # the frozen teacher's forward alone (K3), by CUDA events
+            start.record()
+            for _ in range(args.steps):
+                with trainer._amp():
+                    trainer.teacher_logits(batch)
+            end.record()
+            torch.cuda.synchronize()
+            result["teacher_forward_ms"] = start.elapsed_time(end) / args.steps
+            print(f"teacher forward: {result['teacher_forward_ms']:.1f} ms")
+            write_result(result, args.out)
+            return
 
         # the pseudo-label pipeline: score pass, fetch, host graph stage
         va_before = va.ATTENTION_LAUNCHES
