@@ -66,7 +66,19 @@ Phases, in order; any failure exits non-zero:
    teacher on K3, Seg50 student with two more classes on K4), then
    ``tools/test_torch.py`` (``IncrSegTester``) on the student; one
    incremental step on the kernels and on the plain versions, and the
-   teacher's logits under bfloat16 autocast against its f32 plain version.
+   teacher's logits under bfloat16 autocast against its f32 plain version;
+11. the PT-v2 training slice end to end: ``tools/train_torch.py`` on the
+   shipped S3DIS PT-v2m2 config at full width over phase 5's rooms (the
+   largest batch of 12, 6, 3, 2, 1 that fits; autocast, Mix3D, drop path as
+   shipped), one epoch of two steps, the evaluator, and ``PreciseEvaluator``
+   appended to the hooks (``SemSegTester`` on ``model_best.pth``); K7
+   fifteen times (3 / 3 / 7 / 2 by width) in each evaluator and tester
+   forward and never in a training forward, K1 four times in every forward,
+   no point dropped by the pooling capacity; one val batch on the kernels
+   and on the plain versions; one step's loss under autocast against f32;
+   one ``DefaultTrainer`` step and one eval forward of CAC-v1m1 over the
+   ScanNet PT-v2m2 at full width (its own loss and four parts; K7 in the
+   eval forward alone).
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1437,17 +1449,23 @@ def make_train_rooms(work):
 
 
 def train_with_fallback(work, config, name, data_root, epochs, options,
-                        subsample=True):
-    """``tools/train_torch.py`` on ``config`` at the largest batch size of 16
-    (shipped), 8, 4 and 2 that fits the card's memory, with the launch
-    counts set to 0 just before the run that fits; with ``subsample`` (an
-    open-set trainer) two iterations an epoch at any batch size.  Returns
-    (log, batch size, iterations an epoch, wall s, launches, peak GiB,
-    save_path)."""
+                        subsample=True, sizes=(16, 8, 4, 2), areas=None):
+    """``tools/train_torch.py`` on ``config`` at the largest batch size of
+    ``sizes`` (the first the shipped one) that fits the card's memory, with
+    the launch counts and the pooling capacity's drop count set to 0 just
+    before the run that fits; with ``subsample`` (an open-set trainer) two
+    iterations an epoch at any batch size, with ``areas`` (a function of
+    the batch size giving the train split under ``data_root``) as many as
+    that split's rooms fill.  Returns (log, batch size, iterations an
+    epoch, wall s, launches, peak GiB, save_path)."""
     import torch
 
-    for batch_size in (16, 8, 4, 2):
-        iters = 2 if subsample else TRAIN_ROOMS // batch_size
+    from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2
+
+    for batch_size in sizes:
+        split = TRAIN_AREAS if areas is None else areas(batch_size)
+        rooms = sum(len(glob.glob(os.path.join(data_root, a, "*.npz"))) for a in split)
+        iters = 2 if subsample else rooms // batch_size
         save_path = os.path.join(work, f"exp_{name}_b{batch_size}")
         argv = ["--config-file", config, "--device", DEVICE, "--options",
                 f"data_root={data_root}", f"save_path={save_path}",
@@ -1457,7 +1475,10 @@ def train_with_fallback(work, config, name, data_root, epochs, options,
                 f"eval_epoch={epochs}", *options]
         if subsample:
             argv.append(f"train_subsampling_ratio={iters * batch_size / TRAIN_ROOMS}")
+        if areas is not None:
+            argv.append(f"data.train.split={','.join(split)},")
         reset_launches()
+        ptv2.capacity_dropped_points(reset=True)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
@@ -1476,7 +1497,7 @@ def train_with_fallback(work, config, name, data_root, epochs, options,
     launches = read_launches()
     launches.update(read_knn_kernels())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"  tools/train_torch.py: batch size {batch_size} (shipped: 16), "
+    print(f"  tools/train_torch.py: batch size {batch_size} (shipped: {sizes[0]}), "
           f"{epochs} epochs x {iters} iterations, {wall:.1f} s, peak device "
           f"memory {peak:.2f} GiB; launches {launches}")
     return log, batch_size, iters, wall, launches, peak, save_path
@@ -1864,6 +1885,235 @@ def run_incr_slice(work, data_root, n_val, base_weight):
     return launches, batch_size, peak
 
 
+# phase 11: PT-v2 training.  The shipped batch, its halves, and 2 and 1
+# (3 does not fit one H100: the level capacities are shares of the padded
+# length, Mix3D's empty slots included, so each of the 15 blocks keeps
+# (B, N, 16, C) tensors of about the same size for the backward); the
+# evaluator's and the tester's forwards launch K7 and K1 as phase 8's
+# (PTV2_PER_FORWARD, PTV2_K7_BY_WIDTH), a training forward K1 alone
+PTV2_TRAIN_BATCHES = (12, 6, 3, 2, 1)
+CAC_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                          "semseg-cac-v1m1-2-ptv2-lovasz.py")
+# launches of one CAC-v1m1 eval forward over its ScanNet PT-v2m2 backbone
+# (patch embedding 1 block, encoder 2 + 2 + 6 + 2, decoder 1 + 1 + 1 + 1): K7
+# once a block, K1 once a level (the patch level and four pooled ones)
+CAC_PER_FORWARD = {"gva": 1 + 12 + 4, "knn": 5}
+CAC_K7_BY_WIDTH = {48: 1 + 1, 96: 2 + 1, 192: 2 + 1, 384: 6 + 1, 512: 2}
+# points a sample of CAC's step and their bucket: its config keeps every
+# level at the padded length (no capacity factor), so the (B, N, 16, C)
+# tensors its 17 blocks keep for the backward grow with C at every level; a
+# step at 2 x 24,000 points does not fit the card's memory.  The widths are
+# the config's
+CAC_POINTS, CAC_BUCKET = 8000, 8192
+
+
+def two_batch_splits(work, data_root):
+    """A data root beside ``data_root`` with one train split a batch size,
+    ``Batch{b}``, of 2 b of its rooms (links), and its val area: an epoch
+    of two iterations at any batch size.  Returns the root."""
+    root = os.path.join(work, "s3dis_two_batches")
+    os.makedirs(root)
+    os.symlink(os.path.join(data_root, "Area_5"), os.path.join(root, "Area_5"))
+    rooms = sorted(glob.glob(os.path.join(data_root, "Area_[1-46]", "*.npz")))
+    for b in PTV2_TRAIN_BATCHES:
+        split = os.path.join(root, f"Batch{b}")
+        os.makedirs(split)
+        for i, path in enumerate(rooms[:2 * b]):
+            os.symlink(path, os.path.join(split, f"office_{i}.npz"))
+    return root
+
+
+def run_ptv2_training_slice(work, data_root, n_val):
+    """``tools/train_torch.py`` on the shipped S3DIS PT-v2m2 config at full
+    width over phase 5's rooms, as shipped (AdamW, MultiStepLR, autocast,
+    Mix3D at 0.8, drop path 0.3, level capacity 0.5) at the largest batch of
+    12, 6, 3, 2 and 1 that fits, one epoch of two steps and the evaluator,
+    with ``PreciseEvaluator`` appended to the hooks (``SemSegTester`` on
+    ``model_best.pth`` in-process).  K7 has no backward: the training
+    forwards take ``gva_plain``, so K7 launches in the evaluator's and the
+    tester's forwards alone, K1 in every forward; no point dropped by the
+    pooling capacity.  Then one val batch on the kernels and on the plain
+    versions, one step's loss under autocast against f32, and one
+    ``DefaultTrainer`` step and eval forward of CAC-v1m1 over the ScanNet
+    PT-v2m2 at full width."""
+    import re
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2
+    from pointcloudpdf_tpu_torch.ops import _cuda
+    from pointcloudpdf_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    hooks = [dict(h) for h in Config.fromfile(PTV2_CONFIG).hooks]
+    hooks.append({"type": "PreciseEvaluator", "test_last": False})
+    epochs = 1
+    split_root = two_batch_splits(work, data_root)
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, PTV2_CONFIG, "ptv2_train", split_root, epochs,
+        [f"data.test.data_root={data_root}", f"hooks={hooks!r}"], subsample=False,
+        sizes=PTV2_TRAIN_BATCHES, areas=lambda b: (f"Batch{b}",))
+    by_width = launches.pop("gva_by_width")
+    dropped = ptv2.capacity_dropped_points(reset=True)
+    steps = epochs * iters
+    losses = train_log_losses(log, steps)["loss"]
+    print(f"  losses {losses}")
+    for line in re.findall(r"Val result: [^\n]*", log):
+        print("  " + line)
+    expect(dropped == 0, f"{dropped} points dropped by the pooling capacity in "
+                         "the training, evaluator and tester forwards")
+    expect("Start Precise Evaluation" in log
+           and "model_best.pth" in log.split("Start Precise Evaluation")[-1],
+           "PreciseEvaluator ran the tester on model_best.pth")
+    pred = np.load(glob.glob(os.path.join(save_path, "result", "*_pred.npy"))[0])
+    expect(pred.shape == (n_val,) and pred.min() >= 0 and pred.max() < 13,
+           f"the tester's pred covers all {n_val} points of the val room")
+    # one val room an epoch (batch_size_val 1), then the tester's fragments
+    evaluated = epochs
+    tested = log.split("Start Precise Evaluation")[-1].count(", Batch: ")
+    eval_forwards = evaluated + tested
+    expect(tested > 0, f"{tested} tester forwards")
+    want = PTV2_PER_FORWARD["gva"] * eval_forwards
+    expect(launches["gva"] == want,
+           f"K7: {launches['gva']} launches = {PTV2_PER_FORWARD['gva']} x "
+           f"({evaluated} evaluator + {tested} tester forwards), none in the "
+           f"{steps} training forwards")
+    want = {c: n * eval_forwards for c, n in PTV2_K7_BY_WIDTH.items()}
+    expect(by_width == want, f"K7 by width {by_width} = {PTV2_K7_BY_WIDTH} a "
+                             f"forward x {eval_forwards}")
+    want = PTV2_PER_FORWARD["knn"] * (steps + eval_forwards)
+    expect(launches["knn"] == want,
+           f"K1: {launches['knn']} launches = {PTV2_PER_FORWARD['knn']} x ({steps} "
+           f"training + {eval_forwards} eval forwards)")
+    expect(launches["vector_attention"] == launches["st_attention"]
+           == launches["kpconv"] == launches["fps"] == 0
+           and launches["vector_attention_train"] == (0, 0),
+           "the PT-v2 path launched no PT-v1 or ST kernel and no K2")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one val batch, kernels against plain versions; one step's loss, f32
+    # against autocast
+    cfg = default_config_parser(PTV2_CONFIG, {
+        "data_root": data_root, "data.train.data_root": data_root,
+        "data.val.data_root": data_root, "save_path": os.path.join(work, "exp_ptv2_check"),
+        "device": DEVICE, "batch_size": 2, "num_worker": 0, "hooks": [],
+        "seed": SEED, "mix_prob": 0.0})
+    trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
+    trainer.load_state_dict(load_checkpoint(
+        os.path.join(save_path, "model", "model_best.pth"))["state"])
+    val = trainer.device_batch(next(iter(trainer.val_loader)))
+    reset_launches()
+    out = trainer.eval_step(val)["seg_logits"]
+    one = read_launches()
+    with _cuda.plain_versions():
+        ref = trainer.eval_step(val)["seg_logits"]
+    expect(one["gva"] == PTV2_PER_FORWARD["gva"] and one["knn"] == PTV2_PER_FORWARD["knn"],
+           f"the val forward launched K7 {one['gva']} and K1 {one['knn']} times")
+    valid = val["mask"]
+    lmax = float(ref[valid].abs().max())
+    lerr = float((out - ref)[valid].abs().max())
+    agree = float((out.argmax(-1) == ref.argmax(-1))[valid].float().mean())
+    print(f"  val batch {list(val['coord'].shape)}: logits err {lerr:.3e} (max |logit| "
+          f"{lmax:.3e}), argmax agreement {agree:.6f}")
+    expect(lerr <= TOL_LOGITS * lmax, f"val logits within {TOL_LOGITS} x max |logit|")
+    expect(agree >= 0.999, "argmax agreement >= 99.9%")
+
+    batch = trainer.device_batch(next(iter(trainer.train_loader)))
+    step_losses = {}
+    for amp in (False, True):
+        trainer.cfg.enable_amp = amp
+        trainer._train_mode(True)
+        trainer.generator.manual_seed(SEED)
+        with torch.no_grad(), trainer._amp():
+            loss, _ = trainer.compute_loss(trainer.forward_train(trainer.model, batch), batch)
+        step_losses[amp] = float(loss)
+    f32, amp = step_losses[False], step_losses[True]
+    print(f"  one step's loss: f32 {f32:.6f}, bfloat16 autocast {amp:.6f}")
+    expect(np.isfinite(amp) and abs(amp - f32) <= TOL_AMP_LOGITS * abs(f32),
+           f"the autocast loss finite and within {TOL_AMP_LOGITS} of the f32 loss")
+    del trainer, val, out, ref, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cac = run_cac_step(work, data_root)
+    return launches, batch_size, peak, cac
+
+
+def run_cac_step(work, data_root):
+    """One ``DefaultTrainer`` step and one eval forward of CAC-v1m1 over the
+    ScanNet PT-v2m2 at full width, from the shipped config's model dict, on
+    a batch of two synthetic rooms of ``CAC_POINTS`` points with 9 channels
+    (coordinates, colours, stand-in normals): the model's own loss and its
+    four parts, finite; K7 in the eval forward alone."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.datasets import DATASETS
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    class Rooms:
+        """Stands in for the ScanNet set the config names: the step is fed
+        its batch."""
+
+        def __init__(self, **kwargs):
+            pass
+
+        def __len__(self):
+            return 4
+
+    DATASETS.register_module("SmokeRooms", module=Rooms, force=True)
+    cfg = default_config_parser(CAC_CONFIG, {
+        "device": DEVICE, "batch_size": 2, "num_worker": 0, "evaluate": False,
+        "hooks": [], "seed": SEED, "save_path": os.path.join(work, "exp_cac"),
+        "data.train": {"type": "SmokeRooms"}})
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
+    rng = np.random.RandomState(SEED + 2)
+    rooms = sorted(glob.glob(os.path.join(data_root, TRAIN_AREAS[0], "*.npz")))[:2]
+    n_pad, coords, feats, segs, counts = CAC_BUCKET, [], [], [], []
+    for path in rooms:
+        room = np.load(path)
+        keep = rng.permutation(len(room["coord"]))[:CAC_POINTS]
+        coord = room["coord"][keep]
+        normal = rng.normal(size=coord.shape)
+        normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+        feat = np.concatenate([coord - coord.mean(0), room["color"][keep] / 255.0,
+                               normal], 1).astype(np.float32)
+        seg = np.minimum(room["semantic_gt"][keep], 19)
+        pad = n_pad - len(coord)
+        coords.append(np.pad(coord - coord.min(0), ((0, pad), (0, 0))))
+        feats.append(np.pad(feat, ((0, pad), (0, 0))))
+        segs.append(np.pad(seg, (0, pad), constant_values=-1))
+        counts.append(len(coord))
+    batch = trainer.device_batch(dict(
+        coord=np.stack(coords).astype(np.float32), feat=np.stack(feats),
+        segment=np.stack(segs).astype(np.int64), count=np.array(counts, np.int32)))
+    reset_launches()
+    trainer._dispatch_train(batch)
+    out = {k: float(v) for k, v in trainer.comm_info["model_output_dict"].items()}
+    in_step = read_launches()
+    print(f"  CAC-v1m1 step, batch {list(batch['coord'].shape)}: {out}")
+    expect(set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"}
+           and all(np.isfinite(v) for v in out.values()),
+           "CAC: the model's loss and its four parts, finite")
+    expect(in_step["gva"] == 0 and in_step["knn"] == CAC_PER_FORWARD["knn"],
+           f"CAC step: K7 {in_step['gva']}, K1 {in_step['knn']} launches")
+    reset_launches()
+    logits = trainer.eval_step(batch)["seg_logits"]
+    in_eval = read_launches()
+    expect(bool(torch.isfinite(logits).all()) and logits.shape[-1] == 20,
+           "CAC eval logits finite, 20 classes")
+    expect(in_eval["gva"] == CAC_PER_FORWARD["gva"]
+           and in_eval["gva_by_width"] == CAC_K7_BY_WIDTH
+           and in_eval["knn"] == CAC_PER_FORWARD["knn"],
+           f"CAC eval forward: K7 {in_eval['gva_by_width']}, K1 {in_eval['knn']} "
+           f"launches = {CAC_K7_BY_WIDTH}, {CAC_PER_FORWARD['knn']}")
+    return {key: in_step.get(key, 0) + in_eval.get(key, 0)
+            for key in ("knn", "gva")}
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -1939,13 +2189,18 @@ def main() -> int:
         print("[10] incremental slice end to end")
         incr_train, incr_batch, incr_peak = phase("10", run_incr_slice, work,
                                                   data_root, n_val, base_weight)
+        print("[11] PT-v2 training slice end to end")
+        ptv2_train, ptv2_batch, ptv2_peak, cac = phase(
+            "11", run_ptv2_training_slice, work, data_root, n_val)
     print("  phase wall times (s): " + ", ".join(
         f"[{k}] {v:.1f}" for k, v in walls.items()))
     print(f"  training batch sizes (shipped 16) and peak device memory: PT-v1 "
           f"{batch_size} ({peak:.2f} GiB), ST {st_batch} ({st_peak:.2f} GiB), "
-          f"incremental {incr_batch} ({incr_peak:.2f} GiB)")
+          f"incremental {incr_batch} ({incr_peak:.2f} GiB); PT-v2m2 (shipped 12) "
+          f"{ptv2_batch} ({ptv2_peak:.2f} GiB)")
 
-    main_runs = (launches, serving, st_serving, ptv2_serving, st_train, incr_train)
+    main_runs = (launches, serving, st_serving, ptv2_serving, st_train, incr_train,
+                 ptv2_train)
     for key in ("knn_pruned", "knn_brute"):
         n = sum(run[key] for run in main_runs)
         expect(n > 0, f"{key} kernel launched {n} times over the main-path runs")
@@ -1979,29 +2234,32 @@ def main() -> int:
     kernels = []
     for key, (name, source, replaces) in meta.items():
         r = results[key]
-        # launches: over the six main-path runs, each read from its own
+        # launches: over the seven main-path runs, each read from its own
         # run with the counts set to 0 just before it: launches_train (the
         # PT-v1 training slice; K4 forward + backward), launches_st_train
         # (the ST training slice), launches_incr_train (the incremental
-        # slice; K4 forward + backward), launches_pt_serving,
+        # slice; K4 forward + backward), launches_ptv2_train (the PT-v2
+        # training slice: its training, evaluator and tester forwards; the
+        # CAC step beside it is not counted), launches_pt_serving,
         # launches_st_serving and launches_ptv2_serving (launches_serving:
         # the three serving slices); library_ms: no single PyTorch call
         # computes any of these functions (cdist + topk, a loop of argmax, a
         # chain of gathers and matmuls; scaled_dot_product_attention has no
         # per-pair table terms or MLPs and no gathered keys, a convolution
         # no kernel-point influences)
-        n_train, n_st_train, n_incr = (
+        n_train, n_st_train, n_incr, n_v2_train = (
             sum(n) if isinstance(n, tuple) else n
-            for n in (launches[key], st_train[key], incr_train[key]))
+            for n in (launches[key], st_train[key], incr_train[key], ptv2_train[key]))
         n_pt, n_st = serving.get(key, 0), st_serving.get(key, 0)
         n_v2 = ptv2_serving.get(key, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": (n_train + n_pt + n_st + n_v2 + n_st_train
-                                     + n_incr),
+                                     + n_incr + n_v2_train),
                         "launches_train": n_train,
                         "launches_st_train": n_st_train,
                         "launches_incr_train": n_incr,
+                        "launches_ptv2_train": n_v2_train,
                         "launches_pt_serving": n_pt,
                         "launches_st_serving": n_st,
                         "launches_ptv2_serving": n_v2,

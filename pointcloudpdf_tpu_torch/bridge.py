@@ -96,6 +96,23 @@ torch BN is the ``.norm`` of a ``PointBatchNorm``)
   attn.linear_p_multiplier.0 / .1.norm / .3   attn/pem_fc1 / pem_bn / pem_fc2
   attn.weight_encoding.0 / .1.norm / .3       attn/we_fc1 / we_bn / we_fc2
 
+PT-v2m3: each BatchNorm is a ``PDMaskedBatchNorm`` in the place of the
+``PointBatchNorm`` (the reference's ``PDBatchNorm``); the JAX module stacks
+its banks as ``(n_bank, C)`` leaves under the same name
+  <X>.bns.{i}.weight / bias / running_mean / running_var   <P>/scale|bias|mean|var, row i
+  <X>.bn.*  (not decoupled)                                <P>/..., row 0
+  <X>.modulation.1                                         <P>/modulation  Linear
+where ``<X>.norm`` is the PT-v2m2 name of that BatchNorm and ``<P>`` its
+JAX path.  A JAX tree's banks come out as ``bns.{i}`` (a norm that is not
+decoupled loads ``bns.0`` as ``bn``).
+
+Context-aware classifier (``CAC-v1m1``; the backbone under ``backbone.`` /
+``backbone_module``, as a segmentor's)
+  seg_head.weight / .bias                     proto (as is) / seg_bias
+  proj.0 / proj.2                             proj1 / proj2
+  apd_proj.0 / apd_proj.2                     apd_proj1 / apd_proj2
+  feat_proj_layer.0 / .1 / .3                 feat_fc1 / feat_bn / feat_fc2
+
 Two differences from the reference are the JAX package's and carry over as
 they are.  Its PT-v2 attention applies a second Linear to q and to k ahead of
 their BatchNorms (``q_fc1`` / ``k_fc1``, no reference counterpart: a
@@ -198,6 +215,17 @@ _PTV2_RULES = [
     ("backbone.seg_head.3", _B + "seg_fc2", "linear"),
 ]
 
+# CAC-v1m1's own modules; its prototypes are root leaves (_ROOT_LEAVES)
+_CAC_RULES = [
+    ("proj.0", "proj1", "linear"), ("proj.2", "proj2", "linear"),
+    ("apd_proj.0", "apd_proj1", "linear"), ("apd_proj.2", "apd_proj2", "linear"),
+    ("feat_proj_layer.0", "feat_fc1", "linear"),
+    ("feat_proj_layer.1", "feat_bn", "bn"),
+    ("feat_proj_layer.3", "feat_fc2", "linear"),
+]
+_ROOT_LEAVES = {"seg_head.weight": "params/proto",
+                "seg_head.bias": "params/seg_bias"}
+
 # (torch module path, JAX module path, kind)
 RULES: List[Tuple[str, str, str]] = [
     ("backbone.enc{s}.0.linear", _B + "enc{s}/down/linear", "linear"),
@@ -219,6 +247,7 @@ RULES: List[Tuple[str, str, str]] = [
     ("conf.1", "conf_bn", "bn"),
     ("conf.3", "conf2", "linear"),
     *_PTV2_RULES,
+    *_CAC_RULES,
     *_ST_RULES,
 ]
 
@@ -232,7 +261,10 @@ _LEAVES = {
     "linear": {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     "bn": {"weight": ("params", "scale"), "bias": ("params", "bias"),
            "running_mean": ("batch_stats", "mean"),
-           "running_var": ("batch_stats", "var")},
+           "running_var": ("batch_stats", "var"),
+           # a PDNorm's modulation (a JAX Dense under the norm's path)
+           "modulation_weight": ("params", "modulation_kernel"),
+           "modulation_bias": ("params", "modulation_bias")},
     "ln": {"weight": ("params", "scale"), "bias": ("params", "bias")},
     "tables": {f"relative_pos_{n}_table": ("params", f"rel_{n}_table")
                for n in ("query", "key", "value")},
@@ -287,8 +319,13 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     num_layers = _st_num_layers(flatten_tree(tree.get("params", {})),
                                 r"backbone_module/layer(\d+)_block", 1)
     is_st = any(_ST_ONLY.search(k) for k in flatten_tree(tree.get("params", {})))
+    root = {j: t for t, j in _ROOT_LEAVES.items()}
     for coll in ("params", "batch_stats"):
         for path, value in flatten_tree(tree.get(coll, {})).items():
+            if f"{coll}/{path}" in root:
+                sd[root[f"{coll}/{path}"]] = torch.from_numpy(np.array(value))
+                continue
+            path = _PD_MODULATION.sub(r"/modulation_\1", path)
             for rx, torch_tmpl, kind in (_JAX_RX_ST if is_st else _JAX_RX):
                 m = rx.fullmatch(path)
                 if m is None:
@@ -299,8 +336,11 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
                     continue
                 mod = _fill(torch_tmpl, m.groupdict(), num_layers)
                 arr = np.asarray(value)
-                if kind == "linear" and leaf == "weight":
+                if (kind == "linear" and leaf == "weight") or leaf == "modulation_weight":
                     arr = arr.T
+                if kind == "bn" and (arr.ndim == 2 or leaf.startswith("modulation")):
+                    _put_pd(sd, mod, leaf, arr)
+                    break
                 sd[f"{mod}.{leaf}"] = torch.from_numpy(np.array(arr))
                 if kind == "bn":
                     sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
@@ -310,12 +350,62 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+# PDNorm (PT-v2m3): the JAX Dense "modulation" under a norm's path, and a
+# torch bank or modulation leaf under the norm's module
+_PD_MODULATION = re.compile(r"/modulation/(kernel|bias)$")
+_PD_TORCH = re.compile(
+    r"(?P<mod>.+)\.(?:bns\.(?P<bank>\d+)|bn|modulation\.1)\.(?P<leaf>\w+)")
+
+
+def _put_pd(sd, mod, leaf, arr):
+    """A PD norm's stacked JAX leaf -> its banks' (or modulation's) torch
+    leaves; ``mod`` is the PT-v2m2 name of the BatchNorm (``<X>.norm``)."""
+    assert mod.endswith(".norm"), mod
+    base = mod[:-len(".norm")]
+    if leaf.startswith("modulation"):
+        sd[f"{base}.modulation.1.{leaf[len('modulation_'):]}"] = torch.from_numpy(
+            np.array(arr))
+        return
+    for i, row in enumerate(arr):
+        sd[f"{base}.bns.{i}.{leaf}"] = torch.from_numpy(np.array(row))
+        sd[f"{base}.bns.{i}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _is_pd_norm(base: str) -> bool:
+    """Whether ``base`` is a module where PT-v2m2 has a BatchNorm under
+    ``.norm`` (so a ``bns`` / ``bn`` / ``modulation`` child is a PD norm's)."""
+    key = f"{base}.norm.running_mean"
+    return any(kind == "bn" and rx.fullmatch(key) for rx, _, kind in _TORCH_RX)
+
+
+def _stack_pd(state_dict):
+    """A state_dict with each PD norm's leaves in the PT-v2m2 names of its
+    BatchNorm: the banks stacked (``<X>.norm.weight`` (n_bank, C)), the
+    modulation as ``<X>.norm.modulation_weight`` / ``_bias``."""
+    out, banks = {}, {}
+    for key, value in state_dict.items():
+        m = _PD_TORCH.fullmatch(key)
+        if m is None or not _is_pd_norm(m.group("mod")):
+            out[key] = value
+        elif ".modulation.1." in key:
+            out[f"{m.group('mod')}.norm.modulation_{m.group('leaf')}"] = value
+        elif m.group("leaf") != "num_batches_tracked":
+            bank = int(m.group("bank") or 0)
+            banks.setdefault(f"{m.group('mod')}.norm.{m.group('leaf')}", {})[bank] = value
+    for key, rows in banks.items():
+        out[key] = torch.stack([rows[i] for i in sorted(rows)])
+    return out
+
+
 def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """torch state_dict -> JAX ``{params, batch_stats}`` tree of numpy."""
     flat: Dict[str, np.ndarray] = {}
     num_layers = _st_num_layers(state_dict, r"backbone\.layers\.(\d+)\.", 2)
-    for key, value in state_dict.items():
+    for key, value in _stack_pd(state_dict).items():
         if key.endswith(".num_batches_tracked"):
+            continue
+        if key in _ROOT_LEAVES:
+            flat[_ROOT_LEAVES[key]] = np.ascontiguousarray(value.detach().cpu().numpy())
             continue
         for rx, jax_tmpl, kind in _TORCH_RX:
             m = rx.fullmatch(key)
@@ -323,9 +413,10 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 continue
             coll, jleaf = _LEAVES[kind][m.group("leaf")]
             arr = value.detach().cpu().numpy()
-            if kind == "linear" and jleaf == "kernel":
+            if jleaf.endswith("kernel"):
                 arr = arr.T
             path = _fill(jax_tmpl, m.groupdict(), num_layers)
+            jleaf = jleaf.replace("modulation_", "modulation/")
             flat[f"{coll}/{path}/{jleaf}"] = np.ascontiguousarray(arr)
             break
         else:

@@ -9,5 +9,6 @@ from .misc import (
     OpenSegCheckpointLoader,
     IncrSegCheckpointSaver,
     IncrSegCheckpointLoader,
+    PreciseEvaluator,
 )
 from .evaluator import SemSegEvaluator, OpenSegEvaluator, IncrSegEvaluator

@@ -1,12 +1,14 @@
 # Copied from pointcloudpdf_tpu/engines/hooks/misc.py (the timer, writer and
-# checkpoint hooks, the incremental ones included; the trainer's state_dict
-# is already host numpy, so to_host is gone); keep in step.
+# checkpoint hooks, the incremental ones included, and PreciseEvaluator; the
+# trainer's state_dict is already host numpy, so to_host is gone); keep in
+# step.
 """Misc hooks: timing, logging, checkpoint save/load.
 
 Equivalents of the reference hook zoo (pointcept/engines/hooks/misc.py):
 IterationTimer (step timing + ETA), InformationWriter (console +
 tensorboard scalars), CheckpointSaver (last + per-metric best snapshots,
-atomic), CheckpointLoader (resume / finetune with key rewrites).  The
+atomic), CheckpointLoader (resume / finetune with key rewrites),
+PreciseEvaluator (the configured tester after training).  The
 checkpoints keep the JAX package's keys and tree layout, so either
 package's testers load them.
 """
@@ -419,3 +421,37 @@ class IncrSegCheckpointLoader(HookBase):
                 rewrite={"backbone_module/": ""},
                 allow_partial_rows=partial,
             )
+
+
+@HOOKS.register_module()
+class PreciseEvaluator(HookBase):
+    """Run the full fragment tester in-process after training
+    (reference misc.py:769-793), on ``model_best.pth`` (``model_best_mIoU``
+    after a multi-metric saver), or on ``model_last.pth`` with
+    ``test_last``."""
+
+    def __init__(self, test_last: bool = False):
+        self.test_last = test_last
+
+    def after_train(self):
+        trainer = self.trainer
+        trainer.logger.info(
+            ">>>>>>>>>>>>>>>> Start Precise Evaluation >>>>>>>>>>>>>>>>"
+        )
+        from ..test import TESTERS
+
+        cfg = trainer.cfg
+        if self.test_last:
+            cfg.weight = os.path.join(cfg.save_path, "model", "model_last.pth")
+        else:
+            best = (
+                "model_best.pth"
+                if not isinstance(trainer.best_metric_value, dict)
+                else "model_best_mIoU.pth"
+            )
+            cfg.weight = os.path.join(cfg.save_path, "model", best)
+        test_cfg = cfg.get("test", {}) or {}
+        tester = TESTERS.build(
+            dict(type=test_cfg.get("type", "SemSegTester"), cfg=cfg)
+        )
+        tester.test()

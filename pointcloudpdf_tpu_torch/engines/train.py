@@ -304,17 +304,35 @@ class Trainer(TrainerBase):
             return model(batch, generator=self.generator)
         return model(batch)
 
+    def compute_loss(self, out: Dict, batch: Dict):
+        """(total loss, its 0-d parts) per the reference contract
+        (models/default.py:46-62), as the JAX ``Trainer.compute_loss``: a
+        model that computed its own ``loss`` (CAC, later PointGroup and
+        MSC) hands it over with its scalar parts for the log; otherwise the
+        loss is ``model.loss`` of the segmentation logits."""
+        if "loss" in out:
+            parts = {k: v for k, v in out.items()
+                     if k != "loss" and torch.is_tensor(v) and v.dim() == 0}
+            return out["loss"], parts
+        if "seg_logits" in out:
+            return self.model.loss(out["seg_logits"], batch["segment"]), {}
+        if "cls_logits" in out:
+            raise NotImplementedError(
+                "cls_logits: DefaultClassifier is not ported; see ROADMAP")
+        raise KeyError("model output lacks loss / seg_logits / cls_logits")
+
     def train_step(self, batch: Dict) -> Dict:
         """Forward, loss, backward and one optimizer step; the output dict
-        holds 0-d tensors (no host synchronisation here)."""
+        holds ``loss`` and the loss's parts as 0-d tensors (no host
+        synchronisation here)."""
         self._train_mode(True)
         self.optimizer.zero_grad(set_to_none=True)
         with self._amp():
             out = self.forward_train(self.model, batch)
-            loss = self.model.loss(out["seg_logits"], batch["segment"])
+            loss, parts = self.compute_loss(out, batch)
         loss.backward()
         self.optimizer.step()
-        return {"loss": loss.detach()}
+        return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
     def eval_step(self, batch: Dict) -> Dict:
         self._train_mode(False)

@@ -1,4 +1,4 @@
-"""Point Transformer V2 (PT-v2m2 / PT-v2m1) over padded batches.
+"""Point Transformer V2 (PT-v2m2 / PT-v2m1 / PT-v2m3) over padded batches.
 
 Counterpart of ``pointcloudpdf_tpu/models/point_transformer_v2/ptv2.py``:
 grouped vector attention blocks over one kNN table per resolution level,
@@ -17,8 +17,18 @@ BatchNorms (``q_fc1``, ``k_fc1``), which the reference does not have.
 The attention core is ``ops.gva`` (kernel K7), inference-only as in the JAX
 package: a module in eval mode calls the wrapper, which on the card
 launches the kernel (or raises when a gradient is asked of it), and one
-that trains takes ``gva_plain`` with batch statistics.  PDNorm (PT-v2m3) is
-not ported.
+that trains takes ``gva_plain`` with batch statistics.
+
+PT-v2m3 (``conditions`` given) swaps every BatchNorm, the attention's
+included, for a ``PDMaskedBatchNorm`` from ``norm._bn_factory`` (momentum
+0.01, epsilon 1e-3): one bank a dataset condition, named by ``forward``'s
+``condition`` or the batch's ``condition_name``, and the adaptive
+modulation from the batch's ``context``.  The PD norm takes the place of
+the ``PointBatchNorm`` (``norm1.bns.{i}`` where PT-v2m2 has
+``norm1.norm``).  As the JAX package turns its fused GVA off under a
+PDNorm, PT-v2m3 takes ``gva_plain`` in eval too: it is the one ported
+model that does not reach K7 (folding the active bank into K7 is later
+work).
 """
 
 from __future__ import annotations
@@ -33,7 +43,7 @@ from ...ops.geometry import divide_exact, gather_rows, knn
 from ...ops.gva import grouped_vector_attention, gva_plain
 from ...ops.voxel import unique_parents
 from ..builder import MODELS
-from ..norm import MaskedBatchNorm
+from ..norm import MaskedBatchNorm, PDMaskedBatchNorm, _bn_factory
 from ..utils.structure import where_valid
 
 _DROPPED: Dict[torch.device, torch.Tensor] = {}
@@ -70,14 +80,14 @@ class PointBatchNorm(nn.Module):
         return self.norm(x, mask)
 
 
-def _lin_bn_relu(c_in, c_out, bias=True):
-    return nn.Sequential(nn.Linear(c_in, c_out, bias=bias), PointBatchNorm(c_out),
+def _lin_bn_relu(c_in, c_out, bias=True, norm_fn=PointBatchNorm):
+    return nn.Sequential(nn.Linear(c_in, c_out, bias=bias), norm_fn(c_out),
                          nn.ReLU(inplace=True))
 
 
-def _mlp(c_in, c_out):
+def _mlp(c_in, c_out, norm_fn=PointBatchNorm):
     """Linear -> BatchNorm -> ReLU -> Linear (``[0]``, ``[1]``, ``[3]``)."""
-    return nn.Sequential(nn.Linear(c_in, c_out), PointBatchNorm(c_out),
+    return nn.Sequential(nn.Linear(c_in, c_out), norm_fn(c_out),
                          nn.ReLU(inplace=True), nn.Linear(c_out, c_out))
 
 
@@ -88,19 +98,22 @@ def _apply(seq, x, mask):
 
 class GroupedVectorAttention(nn.Module):
     def __init__(self, embed_channels: int, groups: int, qkv_bias: bool = True,
-                 pe_multiplier: bool = False, pe_bias: bool = True):
+                 pe_multiplier: bool = False, pe_bias: bool = True,
+                 norm_fn=PointBatchNorm):
         super().__init__()
         c = embed_channels
         self.groups = groups
-        self.linear_q = _lin_bn_relu(c, c, qkv_bias)
-        self.linear_k = _lin_bn_relu(c, c, qkv_bias)
+        self.linear_q = _lin_bn_relu(c, c, qkv_bias, norm_fn)
+        self.linear_k = _lin_bn_relu(c, c, qkv_bias, norm_fn)
         # the JAX package's second Linear ahead of the q / k BatchNorms
         self.q_fc1 = nn.Linear(c, c)
         self.k_fc1 = nn.Linear(c, c)
         self.linear_v = nn.Linear(c, c, bias=qkv_bias)
-        self.linear_p_multiplier = _mlp(3, c) if pe_multiplier else None
-        self.linear_p_bias = _mlp(3, c) if pe_bias else None
-        self.weight_encoding = _mlp(c, groups)
+        self.linear_p_multiplier = _mlp(3, c, norm_fn) if pe_multiplier else None
+        self.linear_p_bias = _mlp(3, c, norm_fn) if pe_bias else None
+        self.weight_encoding = _mlp(c, groups, norm_fn)
+        # K7 folds plain BatchNorms' running statistics, no PD bank
+        self.kernel_folds_norms = isinstance(self.weight_encoding[1], PointBatchNorm)
 
     def forward(self, feat, coord, ref_idx, ref_mask, mask):
         lq, lk = self.linear_q, self.linear_k
@@ -108,8 +121,10 @@ class GroupedVectorAttention(nn.Module):
         k = F.relu(lk[1](self.k_fc1(lk[0](feat)), mask))
         v = self.linear_v(feat)
         # the kernel is inference-only: a training module takes the plain
-        # version, an eval module the wrapper
-        core = gva_plain if self.training else grouped_vector_attention
+        # version, an eval module the wrapper (under a PDNorm, the plain
+        # version in eval too)
+        core = (grouped_vector_attention
+                if self.kernel_folds_norms and not self.training else gva_plain)
         out = core(q, k, v, coord, ref_idx, ref_mask & mask[..., None],
                    self.linear_p_multiplier, self.linear_p_bias,
                    self.weight_encoding, self.groups)
@@ -123,17 +138,17 @@ class Block(nn.Module):
 
     def __init__(self, embed_channels: int, groups: int, qkv_bias: bool = True,
                  pe_multiplier: bool = False, pe_bias: bool = True,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, norm_fn=PointBatchNorm):
         super().__init__()
         c = embed_channels
         self.drop_path = drop_path
         self.attn = GroupedVectorAttention(c, groups, qkv_bias, pe_multiplier,
-                                           pe_bias)
+                                           pe_bias, norm_fn)
         self.fc1 = nn.Linear(c, c, bias=False)
         self.fc3 = nn.Linear(c, c, bias=False)
-        self.norm1 = PointBatchNorm(c)
-        self.norm2 = PointBatchNorm(c)
-        self.norm3 = PointBatchNorm(c)
+        self.norm1 = norm_fn(c)
+        self.norm2 = norm_fn(c)
+        self.norm3 = norm_fn(c)
 
     def forward(self, feat, coord, ref_idx, ref_mask, mask, generator=None):
         y = F.relu(self.norm1(self.fc1(feat), mask))
@@ -156,12 +171,12 @@ class BlockSequence(nn.Module):
     def __init__(self, depth: int, embed_channels: int, groups: int,
                  neighbours: int = 16, qkv_bias: bool = True,
                  pe_multiplier: bool = False, pe_bias: bool = True,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, norm_fn=PointBatchNorm):
         super().__init__()
         self.neighbours = neighbours
         self.blocks = nn.ModuleList([
             Block(embed_channels, groups, qkv_bias, pe_multiplier, pe_bias,
-                  drop_path) for _ in range(depth)])
+                  drop_path, norm_fn) for _ in range(depth)])
 
     def forward(self, feat, coord, mask, nbr, generator=None):
         idx, ref_mask = nbr
@@ -182,11 +197,12 @@ class GridPool(nn.Module):
     parent map too; children whose voxel overflows the capacity map to -1
     and are counted (``capacity_dropped_points``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, grid_size: float):
+    def __init__(self, in_channels: int, out_channels: int, grid_size: float,
+                 norm_fn=PointBatchNorm):
         super().__init__()
         self.grid_size = grid_size
         self.fc = nn.Linear(in_channels, out_channels, bias=False)
-        self.norm = PointBatchNorm(out_channels)
+        self.norm = norm_fn(out_channels)
 
     def forward(self, feat, coord, mask, capacity: Optional[int] = None):
         B, n = mask.shape
@@ -202,17 +218,17 @@ class GridPool(nn.Module):
         _count_dropped((mask & ~valid).sum())
         slot = torch.clamp(c2p, min=0).long()
         c = y.shape[-1]
-        neg = torch.full_like(y, float("-inf"))
-        pooled = torch.full((B, cap, c), float("-inf"), dtype=torch.float32,
-                            device=y.device).scatter_reduce(
+        yf = y.float()
+        pooled = yf.new_full((B, cap, c), float("-inf")).scatter_reduce(
             1, slot[..., None].expand(-1, -1, c),
-            torch.where(valid[..., None], y.float(), neg.float()), "amax")
+            torch.where(valid[..., None], yf, torch.full_like(yf, float("-inf"))),
+            "amax")
         pooled = torch.where(torch.isfinite(pooled), pooled,
                              torch.zeros_like(pooled)).to(y.dtype)
-        w = valid.to(torch.float32)
-        coord_sum = torch.zeros((B, cap, 3), device=coord.device).scatter_add(
+        w = valid.to(coord.dtype)
+        coord_sum = coord.new_zeros((B, cap, 3)).scatter_add(
             1, slot[..., None].expand(-1, -1, 3), coord * w[..., None])
-        counts = torch.zeros((B, cap), device=coord.device).scatter_add(1, slot, w)
+        counts = coord.new_zeros((B, cap)).scatter_add(1, slot, w)
         p_coord = coord_sum / torch.clamp(counts[..., None], min=1.0)
         return pooled, p_coord, p_mask, c2p
 
@@ -221,10 +237,11 @@ class UnpoolWithSkip(nn.Module):
     """Map unpooling: the projected coarse features read back through the
     child -> parent map, plus the projected skip features."""
 
-    def __init__(self, in_channels: int, skip_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, skip_channels: int, out_channels: int,
+                 norm_fn=PointBatchNorm):
         super().__init__()
-        self.proj = _lin_bn_relu(in_channels, out_channels)
-        self.proj_skip = _lin_bn_relu(skip_channels, out_channels)
+        self.proj = _lin_bn_relu(in_channels, out_channels, norm_fn=norm_fn)
+        self.proj_skip = _lin_bn_relu(skip_channels, out_channels, norm_fn=norm_fn)
 
     def forward(self, feat, mask, skip_feat, skip_mask, c2p):
         y = _apply(self.proj, feat, mask)
@@ -237,11 +254,12 @@ class UnpoolWithSkip(nn.Module):
 class PatchEmbed(nn.Module):
     def __init__(self, in_channels: int, embed_channels: int, groups: int,
                  depth: int, neighbours: int, qkv_bias: bool,
-                 pe_multiplier: bool, pe_bias: bool):
+                 pe_multiplier: bool, pe_bias: bool, norm_fn=PointBatchNorm):
         super().__init__()
-        self.proj = _lin_bn_relu(in_channels, embed_channels, bias=False)
+        self.proj = _lin_bn_relu(in_channels, embed_channels, False, norm_fn)
         self.blocks = BlockSequence(depth, embed_channels, groups, neighbours,
-                                    qkv_bias, pe_multiplier, pe_bias)
+                                    qkv_bias, pe_multiplier, pe_bias,
+                                    norm_fn=norm_fn)
 
 
 class Encoder(nn.Module):
@@ -265,8 +283,10 @@ def _knn_table(coord, mask, k):
 
 @MODELS.register_module("PT-v2m2")
 class PointTransformerV2(nn.Module):
-    """``forward(input_dict, generator=None)`` -> logits (B, N, classes);
-    ``generator`` feeds the drop-path draws in training."""
+    """``forward(input_dict, generator=None, condition=None)`` -> logits
+    (B, N, classes), or the decoder's features with ``num_classes`` 0;
+    ``generator`` feeds the drop-path draws in training; ``condition`` picks
+    the PDNorm banks (PT-v2m3)."""
 
     def __init__(self, in_channels: int, num_classes: int,
                  patch_embed_depth: int = 1, patch_embed_channels: int = 48,
@@ -286,11 +306,10 @@ class PointTransformerV2(nn.Module):
                  unpool_backend: str = "map",
                  level_capacity_factor: float = 1.0,
                  min_level_capacity: int = 128,
-                 conditions: Sequence[str] = (), **pdnorm):
+                 conditions: Sequence[str] = (), norm_decouple: bool = True,
+                 norm_adaptive: bool = False, norm_affine: bool = True,
+                 context_channels: int = 256, zero_init: bool = True):
         super().__init__()
-        if conditions or pdnorm:
-            raise NotImplementedError(
-                "PT-v2m3 (PDNorm) is not ported; see ROADMAP")
         if unpool_backend != "map":
             raise NotImplementedError(f"unpool_backend={unpool_backend!r}: "
                                       "only the map unpooling is ported")
@@ -302,15 +321,20 @@ class PointTransformerV2(nn.Module):
         self.dec_neighbours = tuple(dec_neighbours)
         self.level_capacity_factor = level_capacity_factor
         self.min_level_capacity = min_level_capacity
+        self.conditions = tuple(conditions)
+        norm_fn = (_bn_factory(self.conditions, None, norm_decouple,
+                               norm_adaptive, norm_affine, context_channels,
+                               zero_init)
+                   if self.conditions else PointBatchNorm)
         stages = len(enc_depths)
         total = sum(enc_depths) + sum(dec_depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         attn = dict(qkv_bias=attn_qkv_bias, pe_multiplier=pe_multiplier,
-                    pe_bias=pe_bias)
+                    pe_bias=pe_bias, norm_fn=norm_fn)
         self.patch_embed = PatchEmbed(
             in_channels, patch_embed_channels, patch_embed_groups,
             patch_embed_depth, patch_embed_neighbours, attn_qkv_bias,
-            pe_multiplier, pe_bias)
+            pe_multiplier, pe_bias, norm_fn)
         self.enc_stages = nn.ModuleList()
         self.dec_stages = nn.ModuleList()
         enc_in = [patch_embed_channels, *enc_channels[:-1]]
@@ -318,12 +342,12 @@ class PointTransformerV2(nn.Module):
         skip_ch = [patch_embed_channels, *enc_channels[:-1]]
         for s in range(stages):
             self.enc_stages.append(Encoder(
-                GridPool(enc_in[s], enc_channels[s], grid_sizes[s]),
+                GridPool(enc_in[s], enc_channels[s], grid_sizes[s], norm_fn),
                 BlockSequence(enc_depths[s], enc_channels[s], enc_groups[s],
                               enc_neighbours[s],
                               drop_path=dpr[sum(enc_depths[:s])], **attn)))
             self.dec_stages.append(Decoder(
-                UnpoolWithSkip(dec_in[s], skip_ch[s], dec_channels[s]),
+                UnpoolWithSkip(dec_in[s], skip_ch[s], dec_channels[s], norm_fn),
                 BlockSequence(dec_depths[s], dec_channels[s], dec_groups[s],
                               dec_neighbours[s],
                               drop_path=dpr[sum(enc_depths) + sum(dec_depths[:s])],
@@ -331,14 +355,21 @@ class PointTransformerV2(nn.Module):
         if num_classes > 0:
             self.seg_head = nn.Sequential(
                 nn.Linear(dec_channels[0], dec_channels[0]),
-                PointBatchNorm(dec_channels[0]), nn.ReLU(inplace=True),
+                norm_fn(dec_channels[0]), nn.ReLU(inplace=True),
                 nn.Linear(dec_channels[0], num_classes))
 
-    def forward(self, input_dict: Dict, generator=None) -> torch.Tensor:
+    def forward(self, input_dict: Dict, generator=None,
+                condition: Optional[str] = None) -> torch.Tensor:
         coord = input_dict["coord"].float()
         feat = input_dict["feat"].float()
         mask = input_dict["mask"].to(torch.bool)
         stages = len(self.enc_stages)
+        if self.conditions:
+            condition = condition or input_dict.get("condition_name")
+            context = input_dict.get("context")
+            for norm in self.modules():
+                if isinstance(norm, PDMaskedBatchNorm):
+                    norm.condition, norm.context = condition, context
 
         y = _apply(self.patch_embed.proj, feat, mask)
         # one kNN table a level, at the widest k any consumer there needs
@@ -386,4 +417,8 @@ def point_transformer_v2m1(**kwargs):
 
 @MODELS.register_module("PT-v2m3")
 def point_transformer_v2m3(**kwargs):
-    raise NotImplementedError("PT-v2m3 (PDNorm) is not ported; see ROADMAP")
+    """PT-v2m3 (reference point_transformer_v2m3_pdnorm.py): every
+    BatchNorm a per-dataset ``PDMaskedBatchNorm`` driven by the condition
+    (and optionally the PPT context)."""
+    kwargs.setdefault("conditions", ("ScanNet", "S3DIS", "Structured3D"))
+    return PointTransformerV2(**kwargs)

@@ -2,8 +2,9 @@
 none): with ``import jax`` / ``import flax`` made to fail, the whole
 package imports, the shipped open-set configs load, a Seg26 forward, a
 narrow Stratified Transformer forward (ST-v1m1 + ST recognizer) and a narrow
-PT-v2m2 forward run on the CPU, the open-set trainer takes one training step
-and the incremental trainer one distillation step.  The port's
+PT-v2m2 forward run on the CPU, the open-set trainer takes one training step,
+the incremental trainer one distillation step and the default trainer one
+PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step.  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
 """
@@ -159,6 +160,44 @@ assert np.isfinite(float(incr.comm_info["model_output_dict"]["loss"]))
 assert not torch.equal(before, incr.student.cls[3].weight)
 assert all(torch.equal(v, incr.model.state_dict()[k]) for k, v in teacher.items())
 assert set(incr.state_dict()["params"]) == {"incr"}
+
+# one DefaultTrainer step of the narrow PT-v2m2 with the Lovasz config's
+# criteria (drop path from the trainer's generator, Mix3D's empty slot)
+lovasz_cfg = default_config_parser(ROOT + "/configs/s3dis/semseg-pt-v2m2-0-lovasz.py")
+v2_cfg.model.criteria = lovasz_cfg.model.criteria
+v2_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                        "enable_amp": False, "evaluate": False, "hooks": [],
+                        "epoch": 2, "eval_epoch": 2})
+v2_cfg.data.train = dict(type="NoJaxScenes")
+v2 = TRAINERS.build(dict(type="DefaultTrainer", cfg=v2_cfg))
+v2_input = dict(input_dict, count=np.array([n, 0], np.int32))
+before = v2.model.backbone.seg_head[3].weight.detach().clone()
+v2._dispatch_train(v2.device_batch(v2_input))
+assert set(v2.comm_info["model_output_dict"]) == {"loss"}
+assert np.isfinite(float(v2.comm_info["model_output_dict"]["loss"]))
+assert not torch.equal(before, v2.model.backbone.seg_head[3].weight)
+assert ptv2.capacity_dropped_points(reset=True) == 0
+
+# one step of the shipped CAC-over-PT-v2 config at narrow widths: the
+# model's own loss and its four parts
+cac_cfg = default_config_parser(ROOT + "/configs/scannet/semseg-cac-v1m1-2-ptv2-lovasz.py")
+assert cac_cfg.model.type == "CAC-v1m1"
+cac_cfg.model.backbone.update(
+    in_channels=6, patch_embed_channels=16, patch_embed_groups=2,
+    enc_depths=(1, 1, 1, 1), enc_channels=(16, 32, 32, 32),
+    enc_groups=(2, 4, 4, 4), dec_channels=(16, 16, 32, 32),
+    dec_groups=(2, 2, 4, 4))
+cac_cfg.model.backbone_out_channels = 16
+cac_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                         "enable_amp": False, "evaluate": False, "hooks": [],
+                         "epoch": 2, "eval_epoch": 2})
+cac_cfg.data.train = dict(type="NoJaxScenes")
+cac = TRAINERS.build(dict(type="DefaultTrainer", cfg=cac_cfg))
+cac_input = dict(input_dict, segment=np.where(segment < 5, segment, -1))
+cac._dispatch_train(cac.device_batch(cac_input))
+out = cac.comm_info["model_output_dict"]
+assert set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"}
+assert all(np.isfinite(float(v)) for v in out.values())
 assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)
 print("NOJAX_OK")
 """

@@ -3,7 +3,8 @@
 short epochs (the second past ``recognizer.start_epoch``, so it runs the
 pseudo-label pipeline and the recognizer loss), then
 ``tools/test_torch.py --device cpu`` on the checkpoint it wrote, then a
-resumed run.  Follows tests/test_openseg.py and tests/test_engine.py of
+resumed run; and ``tools/train_torch.py --device cpu`` on the S3DIS PT-v2m2
+Lovasz config at small widths with ``PreciseEvaluator`` in the hooks.  Follows tests/test_openseg.py and tests/test_engine.py of
 the JAX package; imports nothing of JAX.
 """
 
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2
 from pointcloudpdf_tpu_torch.utils.checkpoint import load_checkpoint
 
 torch.set_num_threads(1)
@@ -221,3 +223,87 @@ def test_trainer_asked_for_cuda_raises_without_it(run):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _run_tool("train_torch.py", ["--config-file", run["config"],
                                      "--options", f"save_path={run['root'] / 'exp_cuda'}"])
+
+
+# -- PT-v2 through tools/train_torch.py, with PreciseEvaluator ------------------------------------------------
+
+_PTV2_CONFIG = '''
+_base_ = [{base!r}]
+batch_size = 2
+num_worker = 0
+enable_amp = False
+seed = 5
+epoch = 1
+eval_epoch = 1
+model = dict(backbone=dict(
+    patch_embed_depth=1, patch_embed_channels=16, patch_embed_groups=2,
+    patch_embed_neighbours=8, enc_depths=(1, 1, 1), enc_channels=(16, 32, 32),
+    enc_groups=(2, 4, 4), enc_neighbours=(8, 8, 8), dec_channels=(16, 16, 32),
+    dec_groups=(2, 2, 4), dec_neighbours=(8, 8, 8), grid_sizes=(0.1, 0.2, 0.4)))
+hooks = [
+    dict(type="CheckpointLoader"),
+    dict(type="IterationTimer", warmup_iter=2),
+    dict(type="InformationWriter"),
+    dict(type="SemSegEvaluator"),
+    dict(type="CheckpointSaver", save_freq=None),
+    dict(type="PreciseEvaluator", test_last=False),
+]
+data = dict(
+    train=dict(split="Area_1", data_root={data_root!r}),
+    val=dict(data_root={data_root!r}),
+    test=dict(data_root={data_root!r}),
+)
+'''
+
+
+def surface_room(rng, n):
+    """A 1 m box scanned on its floor and four walls (n points; the label
+    is the surface), at the density of an S3DIS scan after the 0.04 grid:
+    the level capacities at 0.5 assume surfaces, where a voxel of 0.1
+    merges several points, and drop points of a volume filled at random."""
+    face = rng.randint(0, 5, n)
+    uv = rng.rand(n, 2)
+    coord = np.zeros((n, 3), np.float32)
+    coord[face == 0] = np.c_[uv[face == 0], np.zeros((face == 0).sum())]
+    for f, (axis, side) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1)), start=1):
+        sel = face == f
+        other = [a for a in range(3) if a != axis]
+        coord[np.ix_(sel, other)] = uv[sel]
+        coord[sel, axis] = side
+    color = (rng.rand(n, 3) * 60 + face[:, None] * 40).astype(np.float32)
+    return dict(coord=coord, color=color, semantic_gt=face.astype(np.int64),
+                instance_gt=np.zeros(n, np.int64))
+
+
+def test_train_cli_with_precise_evaluator(tmp_path):
+    """``tools/train_torch.py --device cpu`` on the shipped S3DIS PT-v2m2
+    Lovasz config at small widths, as shipped otherwise (Mix3D at 0.8,
+    drop path 0.3, level capacity 0.5, AdamW, MultiStepLR): an epoch of two
+    steps and the evaluator, then ``PreciseEvaluator`` runs the
+    ``SemSegTester`` in-process on ``model_best.pth`` and writes a
+    prediction for every point of the val room; no point dropped by the
+    pooling capacity in any forward."""
+    rng = np.random.RandomState(0)
+    data_root = tmp_path / "s3dis"
+    sizes = {}
+    for area, count in (("Area_1", 4), ("Area_5", 1)):
+        os.makedirs(data_root / area)
+        for i in range(count):
+            scene = surface_room(rng, int(rng.uniform(2500, 3000)))
+            sizes[(area, i)] = len(scene["coord"])
+            np.savez(data_root / area / f"room_{i}.npz", **scene)
+    config = tmp_path / "semseg-pt-v2m2-small.py"
+    config.write_text(_PTV2_CONFIG.format(
+        base=os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v2m2-0-lovasz.py"),
+        data_root=str(data_root)))
+    save = tmp_path / "exp"
+    ptv2.capacity_dropped_points(reset=True)
+    log = _run_tool("train_torch.py", ["--config-file", str(config), "--device", "cpu",
+                                       "--options", f"save_path={save}"])
+    assert ptv2.capacity_dropped_points(reset=True) == 0
+    assert log.count("Train: [") == 2 and log.count("Val result: mIoU/mAcc/allAcc") == 2
+    assert "Start Precise Evaluation" in log
+    best = os.path.join(save, "model", "model_best.pth")
+    assert os.path.isfile(best) and f"Loading weight at: {best}" in log
+    pred = np.load(save / "result" / "room_0_pred.npy")
+    assert pred.shape == (sizes[("Area_5", 0)],) and 0 <= pred.min() <= pred.max() < 13

@@ -1,26 +1,35 @@
 """Where one training step of the PyTorch port goes, on one GPU.
 
-    python3 tools/profile_train_torch.py [--workload pt|st|incr] [--batch-size 16]
-        [--steps 3] [--out FILE]
+    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2]
+        [--batch-size N] [--steps 3] [--out FILE]
 
 Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``) and a trainer
 on a shipped config at full width: ``pt`` (default) ``OpenSegTrainer`` on
 the PT-v1 open-set config (Seg50 + PDF recognizer), ``st`` the same trainer
 on the S3DIS Stratified Transformer config (ST-v1m1 + ST recognizer, AdamW,
 drop path 0.3), ``incr`` ``IncrSegTrainer`` on the incremental config (a
-seeded Seg50 teacher, Seg50 student with two more classes); autocast as
-each config ships.  Prints, for one fixed batch: milliseconds per train step
+seeded Seg50 teacher, Seg50 student with two more classes), ``ptv2``
+``DefaultTrainer`` on the S3DIS PT-v2m2 config (AdamW, Mix3D 0.8, drop path
+0.3, level capacity 0.5); autocast as each config ships.  The batch size is
+``--batch-size``, else 16, and for ``ptv2`` the largest of
+``chip_smoke.PTV2_TRAIN_BATCHES`` (12 shipped, 6, 3, 2, 1) that fits the
+card's memory.  Prints, for one fixed batch:
+milliseconds per train step
 (CUDA events and host clock), the device's busy time and idle share and its
 split by kind of kernel (``torch.profiler``), every kernel's launches in a
 step, peak device memory; for ``pt`` also the forward share of the
 batch-statistics pass (CUDA events around ``attention_train_affines``); for
 ``pt`` and ``st`` the host side of the pseudo-label pipeline (score pass,
 fetch, graph stage) beside the train step it is meant to hide behind; for
-``incr`` the teacher's forward alone.  ``--out`` also writes the numbers as
-JSON.  Needs a CUDA device.
+``incr`` the teacher's forward alone; for ``ptv2`` the share of the
+step in PyTorch's sort-based backward of advanced indexing (the plain
+grouped attention's gathers) and one evaluator forward over the val room
+(K7 and K1 by the profiler).  ``--out`` also writes the numbers as JSON.
+Needs a CUDA device.
 """
 
 import argparse
+import gc
 import os
 import sys
 import tempfile
@@ -39,8 +48,8 @@ def main():
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--workload", choices=("pt", "st", "incr"), default="pt")
-    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2"), default="pt")
+    parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--out", default=None, help="write the numbers here as JSON")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--no-amp", action="store_true")
@@ -58,37 +67,60 @@ def main():
     config, trainer_type = {
         "pt": (chip_smoke.CONFIG, "OpenSegTrainer"),
         "st": (chip_smoke.ST_CONFIG, "OpenSegTrainer"),
-        "incr": (chip_smoke.INCR_CONFIG, "IncrSegTrainer")}[args.workload]
-    result = {"card": card, "workload": args.workload, "config": os.path.relpath(config, ROOT),
-              "batch_size": args.batch_size}
+        "incr": (chip_smoke.INCR_CONFIG, "IncrSegTrainer"),
+        "ptv2": (chip_smoke.PTV2_CONFIG, "DefaultTrainer")}[args.workload]
+    sizes = ([args.batch_size] if args.batch_size else
+             list(chip_smoke.PTV2_TRAIN_BATCHES) if args.workload == "ptv2" else [16])
+    result = {"card": card, "workload": args.workload, "config": os.path.relpath(config, ROOT)}
     with tempfile.TemporaryDirectory() as work:
         data_root = os.path.join(work, "s3dis")
         rng = np.random.RandomState(1)
         for area in (*chip_smoke.TRAIN_AREAS, "Area_5"):
             os.makedirs(os.path.join(data_root, area))
-        for i in range(2 * args.batch_size):
+        for i in range(2 * max(sizes)):
             chip_smoke.synthetic_room(rng, os.path.join(
                 data_root, chip_smoke.TRAIN_AREAS[i % 5], f"office_{i}.npz"))
-        options = {
-            "data_root": data_root, "data.train.data_root": data_root,
-            "data.val.data_root": data_root, "save_path": os.path.join(work, "exp"),
-            "device": "cuda", "batch_size": args.batch_size, "num_worker": 0,
-            "evaluate": False, "hooks": [], "seed": 0}
-        if args.no_amp:
-            options["enable_amp"] = False
-        cfg = default_config_parser(config, options)
-        result["amp"] = bool(cfg.get("enable_amp"))
-        torch.manual_seed(0)
-        trainer = TRAINERS.build(dict(type=trainer_type, cfg=cfg))
-        loader = iter(trainer.train_loader)
-        input_dict = next(loader)
-        batch = trainer.device_batch(input_dict)
+        chip_smoke.synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"))
         open_set = trainer_type == "OpenSegTrainer"
-        # past start_epoch: the recognizer's loss on
-        step_args = (trainer.recognizer.alpha,) if open_set else ()
+        result["batch_sizes_out_of_memory"] = []
+        for batch_size in sizes:
+            options = {
+                "data_root": data_root, "data.train.data_root": data_root,
+                "data.val.data_root": data_root, "save_path": os.path.join(work, "exp"),
+                "device": "cuda", "batch_size": batch_size, "num_worker": 0,
+                "evaluate": args.workload == "ptv2", "hooks": [], "seed": 0}
+            if args.no_amp:
+                options["enable_amp"] = False
+            cfg = default_config_parser(config, options)
+            result["amp"] = bool(cfg.get("enable_amp"))
+            torch.manual_seed(0)
+            trainer = TRAINERS.build(dict(type=trainer_type, cfg=cfg))
+            input_dict = next(iter(trainer.train_loader))
+            batch = trainer.device_batch(input_dict)
+            # past start_epoch: the recognizer's loss on
+            step_args = (trainer.recognizer.alpha,) if open_set else ()
+
+            def step():
+                trainer._dispatch_train(batch, *step_args)
+
+            try:
+                step()  # warm-up: builds the kernels, allocates
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError:
+                print(f"batch size {batch_size} does not fit the card's memory")
+                result["batch_sizes_out_of_memory"].append(batch_size)
+                del trainer, batch, input_dict
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
+            break
+        else:
+            raise SystemExit("no batch size fits the card's memory")
+        result["batch_size"] = batch_size
         result["shape"] = list(batch["coord"].shape)
         result["valid_points"] = input_dict["count"].tolist()
-        print(f"batch {result['shape']}, valid points {result['valid_points']}")
+        print(f"batch size {batch_size}: batch {result['shape']}, valid points "
+              f"{result['valid_points']}")
 
         # the batch-statistics pass, forward, by CUDA events
         spans = []
@@ -102,11 +134,6 @@ def main():
             spans.append((start, end))
             return out
 
-        def step():
-            trainer._dispatch_train(batch, *step_args)
-
-        step()  # warm-up: builds the kernels, allocates
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         modules.attention_train_affines = timed_affines
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -136,6 +163,36 @@ def main():
         result.update(profile_call(step, host_ms, "step", top=16))
         result["knn_calls_a_step"] = knn_calls(step)
         torch.cuda.synchronize()  # the timings below start on an idle device
+
+        if args.workload == "ptv2":
+            # the plain versions' gathers: PyTorch's sort-based backward of
+            # advanced indexing
+            top = {k["name"]: k["ms"] for k in result["top_kernels"]}
+            result["indexing_backward_ms"] = sum(
+                ms for name, ms in top.items() if "indexing_backward" in name)
+            result["indexing_backward_share"] = (result["indexing_backward_ms"]
+                                                 / result["device_busy_ms"])
+            print(f"indexing backward: {result['indexing_backward_ms']:.1f} ms, "
+                  f"{result['indexing_backward_share']:.3f} of busy")
+            # one evaluator forward over the val room (K7 and K1)
+            val = trainer.device_batch(next(iter(trainer.val_loader)))
+            result["eval_shape"] = list(val["coord"].shape)
+            start.record()
+            for _ in range(args.steps):
+                trainer.eval_step(val)
+            end.record()
+            torch.cuda.synchronize()
+            eval_ms = start.elapsed_time(end) / args.steps
+            chip_smoke.reset_launches()
+            trainer.eval_step(val)
+            result["launches_an_eval_forward"] = chip_smoke.read_launches()
+            prof = profile_call(lambda: trainer.eval_step(val), eval_ms,
+                                "evaluator forward", top=12)
+            result["eval_forward"] = dict(prof, ms_events=eval_ms)
+            print(f"evaluator forward ({result['eval_shape']}): {eval_ms:.1f} ms; "
+                  f"launches {result['launches_an_eval_forward']}")
+            write_result(result, args.out)
+            return
 
         if not open_set:
             # the frozen teacher's forward alone (K3), by CUDA events
