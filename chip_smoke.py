@@ -78,7 +78,25 @@ Phases, in order; any failure exits non-zero:
    and on the plain versions; one step's loss under autocast against f32;
    one ``DefaultTrainer`` step and one eval forward of CAC-v1m1 over the
    ScanNet PT-v2m2 at full width (its own loss and four parts; K7 in the
-   eval forward alone).
+   eval forward alone);
+12. the data-parallel engine: (a) ``launch`` with two gloo ranks sharing
+   the card, the shipped open-set config at full width, global batch 16 =
+   2 x 8 (or the largest of 8, 4 that fits), three steps from one seeded
+   state (Mix3D off, the last two past ``start_epoch``) against one
+   process on the same global batches and kernels: the losses, the first
+   step's gradient, the running statistics (equal on both ranks, within
+   ``TOL_DDP_STATS`` of one process's after the first step), the
+   parameters equal on both ranks after every step, K1-K4's launches in
+   each rank equal to one process's, each batch's pseudo-labels from the
+   start's weights bit-equal (those of the steps, after an update, are
+   printed as an IoU), and one process run twice on the same batches;
+   (b) one step past ``start_epoch`` through ``launch(backend="nccl")`` at
+   world 1 (every collective of the path issued), its outputs bit-equal to
+   the step without ``launch``; (c) ``tools/test_torch.py``'s path on two
+   gloo ranks over phase 4's room and a second one, pred and score files
+   bit-equal to one process's (phase 4's room's to phase 4's too) and the
+   same metrics.  It prints the step's ms at world 1 and 2, the gradient
+   all-reduce's ms and the peak memory of a rank.
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2114,6 +2132,486 @@ def run_cac_step(work, data_root):
             for key in ("knn", "gva")}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the data-parallel engine (two gloo ranks on the card; NCCL at
+# world 1; the tester on two ranks)
+
+DDP_SIZES = (16, 8, 4)  # global batch of phase 12(a): 2 x 8 first, as phase 5's 16
+# running statistics after the first step, world 2 against world 1, of max(1, |stat|):
+# the attention stats pass sums B N K = 21M rows in f32 (1.6e-4 measured, PR 15)
+TOL_DDP_STATS = 1e-3
+
+
+def gradient_gap(grads, ref):
+    """A whole-network gradient against a reference (dicts of numpy arrays
+    by parameter name): the worst tensor's error of its max |grad| (a bias
+    at the larger of its own and its weight's scale: a bias ahead of a
+    batch-statistic BatchNorm or the softmax has an exact gradient of 0),
+    and the whole gradient's error of its length (L2)."""
+    worst, diff2, norm2 = (0.0, None), 0.0, 0.0
+    for key, r in ref.items():
+        scale = float(np.abs(r).max())
+        weight = key[:-len("bias")] + "weight"
+        if key.endswith(".bias") and weight in ref and r.shape != ref[weight].shape:
+            scale = max(scale, float(np.abs(ref[weight]).max()))
+        worst = max(worst, (float(np.abs(grads[key] - r).max()) / max(scale, 1e-30), key))
+        diff2 += float(((grads[key] - r).astype(np.float64) ** 2).sum())
+        norm2 += float((r.astype(np.float64) ** 2).sum())
+    return worst, (diff2 / norm2) ** 0.5
+
+
+def ddp_config(work, data_root, batch_size):
+    """The shipped open-set config at full width, in float32, Mix3D off, no
+    hooks, ``start_epoch`` 1, phase 6's rate."""
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+
+    return default_config_parser(CONFIG, {
+        "data_root": data_root, "data.train.data_root": data_root,
+        "data.val.data_root": data_root, "save_path": os.path.join(work, "exp_ddp"),
+        "device": DEVICE, "batch_size": batch_size, "num_worker": 4,
+        "evaluate": False, "enable_amp": False, "mix_prob": 0.0, "hooks": [],
+        "seed": SEED, "recognizer.start_epoch": 1, "optimizer.lr": STEPS_LR})
+
+
+def ddp_steps(trainer, batches):
+    """Three ``OpenSegTrainer`` steps through ``run_step`` on ``batches``:
+    one in epoch 0 (recognizer frozen), two in epoch 1 (score pass, host
+    pseudo-labels, the pipelined step; the last flushed as an epoch's end
+    does).  Per step: the logged outputs, the pseudo-labels trained on, a
+    digest of the parameters, every ``MaskedBatchNorm``'s running
+    statistics, the step's ms and its gradient all-reduce's ms; and the
+    gradient the optimizer was handed at the first step."""
+    import hashlib
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.models.norm import MaskedBatchNorm
+
+    steps, grads = [], {}
+    dispatch, optimizer_step = trainer._dispatch_train, trainer.optimizer.step
+    sum_gradients = trainer.sum_gradients
+
+    def timed_sum():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sum_gradients()
+        torch.cuda.synchronize()
+        steps[-1]["allreduce_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def recording_step():
+        if not grads:
+            grads.update({n: p.grad.detach().cpu().numpy()
+                          for n, p in trainer.named_parameters() if p.grad is not None})
+        return optimizer_step()
+
+    def recording_dispatch(batch, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps.append({})
+        dispatch(batch, *args)
+        torch.cuda.synchronize()
+        step = steps[-1]
+        step["ms"] = (time.perf_counter() - t0) * 1e3
+        step["out"] = {k: float(v) for k, v in
+                       trainer.comm_info["model_output_dict"].items()}
+        step["pseudo"] = batch["segment_pseudo"].cpu().numpy()
+        digest = hashlib.sha1()
+        for _, p in trainer.named_parameters():
+            digest.update(p.detach().cpu().numpy().tobytes())
+        step["params_sha1"] = digest.hexdigest()
+        step["stats"] = {
+            f"{name}.{mod_name}": np.concatenate([m.running_mean.cpu().numpy(),
+                                                  m.running_var.cpu().numpy()])
+            for name, module in trainer.modules().items()
+            for mod_name, m in module.named_modules() if isinstance(m, MaskedBatchNorm)}
+
+    trainer._dispatch_train, trainer.optimizer.step = recording_dispatch, recording_step
+    trainer.sum_gradients = timed_sum
+    for epoch, input_dict in zip((0, 1, 1), batches):
+        trainer.epoch = epoch
+        trainer.comm_info["input_dict"] = input_dict
+        trainer.run_step()
+    trainer._flush_pending()
+    return steps, grads
+
+
+def start_masks(trainer, batches):
+    """Each batch's pseudo-labels from the start's weights: the score pass
+    and the host graph stage, as ``run_step`` computes them past
+    ``start_epoch``."""
+    import torch
+
+    masks = []
+    for input_dict in batches:
+        with torch.inference_mode():
+            sheets = trainer.pseudo_forward(trainer.device_batch(input_dict))
+        masks.append(trainer.pseudo_masks(input_dict,
+                                          *(t.cpu().numpy() for t in sheets)))
+    return masks
+
+
+def flagged_iou(a, b):
+    """Intersection over union of two runs' pseudo-labelled points."""
+    union = int((a | b).sum())
+    return int((a & b).sum()) / union if union else 1.0
+
+
+def shard_input(input_dict, rank, world):
+    """A rank's items (``rank::world``) of a collated global batch."""
+    out = {k: v[rank::world] if isinstance(v, np.ndarray) and v.ndim else v
+           for k, v in input_dict.items()}
+    out["offset"] = np.cumsum(out["count"]).astype(np.int64)
+    return out
+
+
+def ddp_rank(work, cfg):
+    """``launch``'s ``main_func`` for phase 12(a): this rank's shard of the
+    global batches through ``ddp_steps``, from the saved start, with the
+    launch counts set to 0 just before and read just after; pickled to
+    ``work/ddp_rank<r>.pkl``."""
+    import pickle
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.utils import comm
+
+    rank, world = comm.get_rank(), comm.get_world_size()
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+    start = torch.load(os.path.join(work, "ddp_start.pt"))
+    for name, module in trainer.modules().items():
+        module.load_state_dict(start[name])
+    with open(os.path.join(work, "ddp_batches.pkl"), "rb") as f:
+        batches = [shard_input(b, rank, world) for b in pickle.load(f)]
+    masks = start_masks(trainer, batches)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    all_reduce, calls = torch.distributed.all_reduce, []
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return all_reduce(*args, **kwargs)
+
+    torch.distributed.all_reduce = counted  # the steps' tensor all-reduces
+    try:
+        steps, grads = ddp_steps(trainer, batches)
+    finally:
+        torch.distributed.all_reduce = all_reduce
+    launches = read_launches()
+    launches.update(read_knn_kernels())
+    result = dict(steps=steps, grads=grads, launches=launches, masks=masks,
+                  all_reduces=len(calls),
+                  peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                  device=str(trainer.device))
+    with open(os.path.join(work, f"ddp_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def ddp_one_process(work, data_root, batch_size, batches=None):
+    """Phase 12(a)'s reference: the three steps in this process on the
+    global batches, which it draws from the shipped train loader (epoch 0's
+    two, epoch 1's first) and saves with the start for the ranks; or, given
+    ``batches``, the same steps again from the saved start."""
+    import pickle
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    cfg = ddp_config(work, data_root, batch_size)
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+    if batches is None:
+        batches = []
+        for epoch in (0, 1):
+            trainer.train_loader.set_epoch(epoch)
+            for input_dict in trainer.train_loader:
+                batches.append(input_dict)
+                if len(batches) == 2 + epoch:
+                    break
+        torch.save({n: m.state_dict() for n, m in trainer.modules().items()},
+                   os.path.join(work, "ddp_start.pt"))
+        with open(os.path.join(work, "ddp_batches.pkl"), "wb") as f:
+            pickle.dump(batches, f)
+    else:
+        start = torch.load(os.path.join(work, "ddp_start.pt"))
+        for name, module in trainer.modules().items():
+            module.load_state_dict(start[name])
+    masks = start_masks(trainer, batches)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    steps, grads = ddp_steps(trainer, batches)
+    launches = read_launches()
+    launches.update(read_knn_kernels())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, dict(steps=steps, grads=grads, launches=launches, peak=peak,
+                     masks=masks, batches=batches)
+
+
+def run_ddp_training(work, data_root):
+    """Phase 12(a): two gloo ranks on the card against one process on the
+    same global batches and kernels.  Returns the ranks' launches (summed)
+    and the numbers the phase prints."""
+    import pickle
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines.launch import launch
+
+    for batch_size in DDP_SIZES:
+        try:
+            cfg, one = ddp_one_process(work, data_root, batch_size)
+            t0 = time.perf_counter()
+            launch(ddp_rank, num_gpus_per_machine=2, cfg=(work, cfg),
+                   backend="gloo", device=DEVICE)
+            wall = time.perf_counter() - t0
+        except torch.cuda.OutOfMemoryError:
+            pass
+        except Exception as e:  # a rank's error comes back as its traceback
+            if "OutOfMemoryError" not in str(e):
+                raise
+        else:
+            break
+        print(f"  global batch {batch_size} does not fit the card's memory")
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise SmokeFailure("no global batch fits the card's memory")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(work, f"ddp_rank{r}.pkl"), "rb") as f:
+            ranks.append(pickle.load(f))
+    print(f"  global batch {batch_size} = 2 x {batch_size // 2} (shipped 16), ranks on "
+          f"{[r['device'] for r in ranks]} (gloo); two ranks' wall {wall:.1f} s")
+
+    # launches: a rank's equal one process's (every call is a batch's)
+    for r, rank in enumerate(ranks):
+        expect(rank["launches"] == one["launches"],
+               f"rank {r}'s launches {rank['launches']} = one process's "
+               f"{one['launches']}")
+    fwd, bwd = one["launches"]["vector_attention_train"]
+    expect(fwd == bwd == 18 * 3, f"K4: {fwd} forward + {bwd} backward launches a rank "
+                                 f"= 18 x 3 steps")
+    expect(one["launches"]["vector_attention"] == 18 * 2,
+           f"K3: {one['launches']['vector_attention']} launches a rank = 18 x 2 score "
+           "passes")
+    expect(one["launches"]["knn"] > 0 and one["launches"]["fps"] > 0,
+           f"K1 {one['launches']['knn']} and K2 {one['launches']['fps']} launches a rank")
+
+    def interleave(parts):
+        out = np.empty_like(np.concatenate(parts))
+        for r, part in enumerate(parts):
+            out[r::len(parts)] = part
+        return out
+
+    # the pseudo-labels from equal weights: bit for bit (an item's seed
+    # follows its place in the global batch)
+    for i, want in enumerate(one["masks"]):
+        got = interleave([r["masks"][i] for r in ranks])
+        expect(np.array_equal(got, want),
+               f"batch {i + 1}'s pseudo-labels from the start's weights: two ranks' "
+               f"bit-equal to one process's ({int(want.sum())} points flagged)")
+
+    # one process again on the same batches, from the same start: how far
+    # a second run of the same steps lands (K4's backward sums its
+    # parameter gradients with atomics)
+    _, again = ddp_one_process(work, data_root, batch_size, batches=one["batches"])
+    repeat = [a["params_sha1"] == b["params_sha1"]
+              for a, b in zip(again["steps"], one["steps"])]
+    repeat_iou = [flagged_iou(a["pseudo"] == 13, b["pseudo"] == 13)
+                  for a, b in zip(again["steps"], one["steps"])]
+    print(f"  one process run twice: parameters equal after each step {repeat}; "
+          f"pseudo-labelled points' IoU {repeat_iou}")
+
+    (s0, s1), ref = (r["steps"] for r in ranks), one["steps"]
+    expect(len(s0) == len(s1) == len(ref) == 3, "three steps in every run")
+    ious = []
+    for i, (a, b, want) in enumerate(zip(s0, s1, ref)):
+        expect(a["out"] == b["out"], f"step {i + 1}: the ranks log the same outputs")
+        for key, value in want["out"].items():
+            if key == "pseudo_flagged":  # a share of points: the IoU below
+                continue
+            expect(abs(a["out"][key] - value) <= TOL_STEPS * abs(value),
+                   f"step {i + 1} {key}: {a['out'][key]:.6f} (world 2) within "
+                   f"{TOL_STEPS} of {value:.6f} (world 1)")
+        ious.append(flagged_iou(interleave([a["pseudo"], b["pseudo"]]) == 13,
+                                want["pseudo"] == 13))
+        expect(a["params_sha1"] == b["params_sha1"],
+               f"step {i + 1}: parameters equal on both ranks")
+        expect(all(np.array_equal(a["stats"][k], b["stats"][k]) for k in a["stats"]),
+               f"step {i + 1}: running statistics equal on both ranks "
+               f"({len(a['stats'])} MaskedBatchNorms)")
+        if i == 0:
+            errs = sorted(
+                (float(np.abs(a["stats"][key] - r).max())
+                 / max(1.0, float(np.abs(r).max())), key)
+                for key, r in want["stats"].items())
+            worst_stats = errs[-1][0]
+            print("  step 1, running statistics' largest gaps to one process's: "
+                  + ", ".join(f"{k} {e:.3e}" for e, k in errs[-4:]))
+            expect(worst_stats <= TOL_DDP_STATS,
+                   f"step 1: running statistics within {TOL_DDP_STATS} of one "
+                   f"process's (worst {worst_stats:.3e} at {errs[-1][1]})")
+    # after an update the score passes read running statistics that differ
+    # by the f32 order of their sums (above), and the host graph stage
+    # flips points: reported, not held (the seeds are held above, from
+    # equal weights)
+    print(f"  pseudo-labelled points of the steps, two ranks against one process: "
+          f"IoU {ious}")
+    flagged = [s["out"].get("pseudo_flagged", 0.0) for s in ref]
+    expect(flagged[0] == 0.0 and min(flagged[1:]) > 0.0,
+           f"pseudo-labelling fired past start_epoch: {flagged}")
+    (worst, where), whole = gradient_gap(ranks[0]["grads"], one["grads"])
+    expect(len(ranks[0]["grads"]) == len(one["grads"]) and worst <= TOL_GRAD,
+           f"first step's gradient, world 2 against world 1, {len(one['grads'])} "
+           f"tensors: worst {worst:.3e} of its max |grad| at {where} <= {TOL_GRAD}")
+    expect(whole <= TOL_GRAD_WHOLE,
+           f"first step's gradient as a whole: {whole:.3e} <= {TOL_GRAD_WHOLE}")
+    step_ms = {w: [s["ms"] for s in steps] for w, steps in ((1, ref), (2, s0))}
+    allreduce_ms = [s["allreduce_ms"] for s in s0]
+    print(f"  step ms (host clock, synchronised): world 1 {step_ms[1]}, world 2 "
+          f"{step_ms[2]}; gradient all-reduce ms (gloo, world 2) {allreduce_ms}; "
+          f"tensor all-reduces a rank over the three steps "
+          f"{[r['all_reduces'] for r in ranks]}")
+    print(f"  peak device memory: world 1 {one['peak']:.2f} GiB, world 2 a rank "
+          f"{[round(r['peak'], 2) for r in ranks]} GiB")
+    launches = {}  # both ranks' (K7 by width left out: no PT-v2 here)
+    for key, n in ranks[0]["launches"].items():
+        m = ranks[1]["launches"][key]
+        if isinstance(n, tuple):
+            launches[key] = tuple(x + y for x, y in zip(n, m))
+        elif not isinstance(n, dict):
+            launches[key] = n + m
+    return launches, dict(batch_size=batch_size, step_ms=step_ms,
+                          allreduce_ms=allreduce_ms, peak=[r["peak"] for r in ranks],
+                          one_peak=one["peak"], wall=wall, cfg=cfg,
+                          all_reduces=ranks[0]["all_reduces"])
+
+
+def one_step(trainer, input_dict, out, grouped):
+    """One step past ``start_epoch`` (score pass, pseudo-labels, the step);
+    ``launch``'s ``main_func`` for phase 12(b), in a group of one where
+    ``grouped``."""
+    from pointcloudpdf_tpu_torch.utils import comm
+
+    expect(comm.is_distributed() == grouped and comm.get_world_size() == 1,
+           "an NCCL group of one" if grouped else "no process group")
+    trainer.epoch = 1
+    trainer.comm_info["input_dict"] = input_dict
+    trainer.run_step()
+    trainer._flush_pending()
+    out.update({k: float(v) for k, v in trainer.comm_info["model_output_dict"].items()})
+
+
+def run_nccl_world_one(work, ddp):
+    """Phase 12(b): one step through ``launch(backend="nccl")`` at world 1,
+    every collective of the path issued, against the same step without
+    ``launch`` (two crops of phase 12(a)'s third batch)."""
+    import copy
+    import pickle
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines.launch import launch
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    cfg = copy.deepcopy(ddp["cfg"])
+    cfg.batch_size = 2
+    with open(os.path.join(work, "ddp_batches.pkl"), "rb") as f:
+        input_dict = shard_input(pickle.load(f)[2], 0, ddp["batch_size"] // 2)
+    start = torch.load(os.path.join(work, "ddp_start.pt"))
+    outs = []
+    for through_launch in (False, True, False):
+        torch.manual_seed(SEED)
+        trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+        for name, module in trainer.modules().items():
+            module.load_state_dict(start[name])
+        out = {}
+        if through_launch:
+            launch(one_step, num_gpus_per_machine=1,
+                   cfg=(trainer, input_dict, out, True), backend="nccl", device=DEVICE)
+        else:
+            one_step(trainer, input_dict, out, False)
+        outs.append(out)
+        del trainer
+    print(f"  outputs without launch {outs[0]}, through launch (NCCL, world 1) "
+          f"{outs[1]}, without again {outs[2]}")
+    expect(outs[0] == outs[2], "the step repeats bit for bit without launch")
+    expect(outs[1] == outs[0], "the step through launch (NCCL, world 1) equals it "
+                               "bit for bit")
+
+
+def run_ddp_tester(work):
+    """Phase 12(c): ``tools/test_torch.py``'s path (``test_worker``) on two
+    gloo ranks over phase 4's room and a second one, against one process:
+    pred and score files bit-equal, the same metrics; phase 4's room's
+    files bit-equal to phase 4's."""
+    import shutil
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.launch import launch
+    from pointcloudpdf_tpu_torch.engines.test import test_worker
+
+    data_root = os.path.join(work, "s3dis_ddp_test")
+    os.makedirs(os.path.join(data_root, "Area_5"))
+    shutil.copy(os.path.join(work, "s3dis_pt", "Area_5", "office_1.npz"),
+                os.path.join(data_root, "Area_5", "office_1.npz"))
+    synthetic_room(np.random.RandomState(SEED + 5),
+                   os.path.join(data_root, "Area_5", "office_2.npz"))
+    weight = os.path.join(work, "model_pt.pth")
+
+    def options(world):
+        return {"data_root": data_root, "data.test.data_root": data_root,
+                "weight": weight, "save_path": os.path.join(work, f"exp_ddp_test_w{world}"),
+                "device": DEVICE}
+
+    t0 = time.perf_counter()
+    log1 = run_tool("test_torch.py", [
+        "--config-file", CONFIG, "--device", DEVICE, "--options",
+        *(f"{k}={v}" for k, v in options(1).items())])
+    t1 = time.perf_counter()
+    launch(test_worker, num_gpus_per_machine=2,
+           cfg=(default_config_parser(CONFIG, options(2)),), backend="gloo",
+           device=DEVICE)
+    t2 = time.perf_counter()
+    with open(os.path.join(options(2)["save_path"], "train.log")) as f:
+        log2 = f.read()
+    print(f"  tester over 2 rooms: one process {t1 - t0:.1f} s, two gloo ranks "
+          f"{t2 - t1:.1f} s")
+    results = [os.path.join(options(w)["save_path"], "result") for w in (1, 2)]
+    names = sorted(os.listdir(results[0]))
+    expect(len(names) == 4 and sorted(os.listdir(results[1])) == names,
+           f"pred and score files of both rooms from both runs: {names}")
+    for name in names:
+        a, b = (np.load(os.path.join(d, name)) for d in results)
+        expect(np.array_equal(a, b), f"{name}: two ranks' file bit-equal to one "
+                                     "process's")
+        if name.startswith("office_1"):
+            c = np.load(os.path.join(work, "exp_pt", "result", name))
+            expect(np.array_equal(b, c), f"{name}: bit-equal to phase 4's")
+    import re
+
+    val = [re.findall(r"Val result: [^\n]*", log) for log in (log1, log2)]
+    print("  " + "\n  ".join(val[1]))
+    expect(len(val[0]) == 3 and val[0] == val[1],
+           "rank 0 reports one process's metrics")
+
+
+def run_ddp_slice(work, data_root):
+    """Phase 12: (a), (b) and (c)."""
+    print("  (a) two gloo ranks on the card, the shipped open-set config")
+    launches, ddp = run_ddp_training(work, data_root)
+    print("  (b) NCCL at world 1")
+    run_nccl_world_one(work, ddp)
+    print("  (c) the tester on two gloo ranks")
+    run_ddp_tester(work)
+    return launches, ddp
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -2192,6 +2690,16 @@ def main() -> int:
         print("[11] PT-v2 training slice end to end")
         ptv2_train, ptv2_batch, ptv2_peak, cac = phase(
             "11", run_ptv2_training_slice, work, data_root, n_val)
+        print("[12] data-parallel engine: two gloo ranks on the card, NCCL at "
+              "world 1, the tester on two ranks")
+        ddp_train, ddp = phase("12", run_ddp_slice, work, data_root)
+        print(f"  {card}: phase 12 wall {walls['12']:.1f} s; step ms world 1 "
+              f"{[round(t, 1) for t in ddp['step_ms'][1]]}, world 2 "
+              f"{[round(t, 1) for t in ddp['step_ms'][2]]} (global batch "
+              f"{ddp['batch_size']}); gradient all-reduce ms "
+              f"{[round(t, 1) for t in ddp['allreduce_ms']]} ({ddp['all_reduces']} "
+              f"tensor all-reduces a rank over 3 steps); peak GiB world 1 "
+              f"{ddp['one_peak']:.2f}, a rank {[round(p, 2) for p in ddp['peak']]}")
     print("  phase wall times (s): " + ", ".join(
         f"[{k}] {v:.1f}" for k, v in walls.items()))
     print(f"  training batch sizes (shipped 16) and peak device memory: PT-v1 "
@@ -2200,7 +2708,7 @@ def main() -> int:
           f"{ptv2_batch} ({ptv2_peak:.2f} GiB)")
 
     main_runs = (launches, serving, st_serving, ptv2_serving, st_train, incr_train,
-                 ptv2_train)
+                 ptv2_train, ddp_train)
     for key in ("knn_pruned", "knn_brute"):
         n = sum(run[key] for run in main_runs)
         expect(n > 0, f"{key} kernel launched {n} times over the main-path runs")
@@ -2242,24 +2750,29 @@ def main() -> int:
         # training slice: its training, evaluator and tester forwards; the
         # CAC step beside it is not counted), launches_pt_serving,
         # launches_st_serving and launches_ptv2_serving (launches_serving:
-        # the three serving slices); library_ms: no single PyTorch call
+        # the three serving slices), launches_ddp_train (phase 12(a): both
+        # ranks' counts, each set to 0 just before its steps; the
+        # one-process reference beside them is not counted); library_ms: no
+        # single PyTorch call
         # computes any of these functions (cdist + topk, a loop of argmax, a
         # chain of gathers and matmuls; scaled_dot_product_attention has no
         # per-pair table terms or MLPs and no gathered keys, a convolution
         # no kernel-point influences)
-        n_train, n_st_train, n_incr, n_v2_train = (
+        n_train, n_st_train, n_incr, n_v2_train, n_ddp = (
             sum(n) if isinstance(n, tuple) else n
-            for n in (launches[key], st_train[key], incr_train[key], ptv2_train[key]))
+            for n in (launches[key], st_train[key], incr_train[key], ptv2_train[key],
+                      ddp_train[key]))
         n_pt, n_st = serving.get(key, 0), st_serving.get(key, 0)
         n_v2 = ptv2_serving.get(key, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": (n_train + n_pt + n_st + n_v2 + n_st_train
-                                     + n_incr + n_v2_train),
+                                     + n_incr + n_v2_train + n_ddp),
                         "launches_train": n_train,
                         "launches_st_train": n_st_train,
                         "launches_incr_train": n_incr,
                         "launches_ptv2_train": n_v2_train,
+                        "launches_ddp_train": n_ddp,
                         "launches_pt_serving": n_pt,
                         "launches_st_serving": n_st,
                         "launches_ptv2_serving": n_v2,

@@ -1,9 +1,12 @@
 """Engine defaults: argument parsing, config resolution, run setup.
 
-Counterpart of ``pointcloudpdf_tpu/engines/defaults.py`` for one process:
-the same config-name protocol (``configs/<dataset>/<name>.py`` or the
-``dataset/name`` shorthand), ``--options k=v`` overrides and save-path
-layout, plus ``--device``.
+Counterpart of ``pointcloudpdf_tpu/engines/defaults.py``: the same
+config-name protocol (``configs/<dataset>/<name>.py`` or the
+``dataset/name`` shorthand), ``--options k=v`` overrides, save-path layout
+and ``--num-gpus`` (ranks on this machine, see ``launch``), plus
+``--device``.  A config's batch sizes are totals over ranks: each rank's
+loader takes ``batch_size // world`` (the reference's
+``batch_size_per_gpu``).
 """
 
 from __future__ import annotations
@@ -11,6 +14,9 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch
+
+from ..utils import comm
 from ..utils.config import Config, DictAction
 from ..utils.env import get_random_seed, set_seed
 from ..utils.logger import get_root_logger
@@ -23,8 +29,8 @@ def default_argument_parser(epilog=None):
         "--config-file", default="", metavar="FILE", help="path to config file")
     parser.add_argument(
         "--num-gpus", type=int, default=1,
-        help="accepted for reference-CLI parity; the port runs one process "
-             "on one device")
+        help="ranks on this machine, one a CUDA device (gloo ranks on the "
+             "CPU with --device cpu)")
     parser.add_argument(
         "--device", default=None,
         help="torch device to run on (default: the config's `device`, else "
@@ -70,11 +76,34 @@ def default_config_parser(file_path: str, options=None) -> Config:
     return cfg
 
 
+def per_rank_batch(batch_size) -> int:
+    """One rank's share of a config's total batch size (1 when the config
+    leaves it None); the total must divide evenly over the ranks."""
+    if batch_size is None:
+        return 1
+    world = comm.get_world_size()
+    if batch_size % world:
+        raise ValueError(f"batch size {batch_size} does not divide over "
+                         f"{world} ranks")
+    return batch_size // world
+
+
 def default_setup(cfg: Config) -> Config:
-    set_seed(None if cfg.get("seed") is None else cfg.seed * 2)
+    for key in ("batch_size", "batch_size_val", "batch_size_test"):
+        per_rank_batch(cfg.get(key))
+    # the seeds (data augmentation, initialisation) differ by rank, rank 0
+    # keeps a one-process run's; the trainer takes rank 0's weights
+    seed = set_seed(None if cfg.get("seed") is None
+                    else cfg.seed * 2 + comm.get_rank())
+    torch.manual_seed(seed)
     os.makedirs(cfg.save_path, exist_ok=True)
-    logger = get_root_logger(log_file=os.path.join(cfg.save_path, "train.log"))
+    main = comm.is_main_process()
+    logger = get_root_logger(
+        log_file=os.path.join(cfg.save_path, "train.log") if main else None)
+    if comm.is_distributed():
+        logger.info(f"Rank {comm.get_rank()} of {comm.get_world_size()}")
     logger.info(f"Save path: {cfg.save_path}")
     logger.info(f"Config:\n{cfg.pretty_text}")
-    cfg.dump(os.path.join(cfg.save_path, "config.py"))
+    if main:
+        cfg.dump(os.path.join(cfg.save_path, "config.py"))
     return cfg

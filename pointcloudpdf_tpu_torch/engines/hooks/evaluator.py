@@ -5,7 +5,9 @@
 The forward runs on the trainer's device; the IoU histogram and the
 AUPR/AUROC records are numpy on the host, with padded points carrying
 ``ignore_index``.  mIoU/mAcc/allAcc follow the reference
-(utils/misc.py:55-87).
+(utils/misc.py:55-87).  Over several ranks each evaluates its shard of the
+val set; the histograms and records are gathered, and a batch's loss is
+summed over the ranks (each holds its part of the global batch's).
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ class SemSegEvaluator(HookBase):
             else:
                 totals += _batch_counts(out, batch["segment"], batch["mask"],
                                         num_classes, ignore_index)
-            loss = float(trainer.model.loss(out["seg_logits"], batch["segment"]))
+            loss = float(comm.sum_over_ranks(
+                trainer.model.loss(out["seg_logits"], batch["segment"])))
             loss_sum += loss
             loss_cnt += 1
             if (i + 1) % 10 == 0:
@@ -156,7 +159,8 @@ class OpenSegEvaluator(HookBase):
             oracle = batch.get("segment_oracle", batch["segment"])
             totals += _batch_counts(out, oracle, batch["mask"], num_classes,
                                     ignore_index)
-            loss = float(trainer.model.loss(out["seg_logits"], batch["segment"]))
+            loss = float(comm.sum_over_ranks(
+                trainer.model.loss(out["seg_logits"], batch["segment"])))
             loss_sum += loss
             loss_cnt += 1
             # padded slots drop out of the score records through the
@@ -257,7 +261,7 @@ class IncrSegEvaluator(HookBase):
             out = trainer.eval_step(batch)
             totals += _batch_counts(out, batch["segment_incr_remap"],
                                     batch["mask"], k, self.ignore_index)
-            loss = float(out["loss"])
+            loss = float(comm.sum_over_ranks(out["loss"]))
             loss_sum += loss
             loss_cnt += 1
             trainer.logger.info(

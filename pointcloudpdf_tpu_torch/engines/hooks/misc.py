@@ -428,7 +428,8 @@ class PreciseEvaluator(HookBase):
     """Run the full fragment tester in-process after training
     (reference misc.py:769-793), on ``model_best.pth`` (``model_best_mIoU``
     after a multi-metric saver), or on ``model_last.pth`` with
-    ``test_last``."""
+    ``test_last``.  Every rank runs it, once rank 0 has saved: the tester
+    shares the scenes out and reports on rank 0."""
 
     def __init__(self, test_last: bool = False):
         self.test_last = test_last
@@ -440,6 +441,7 @@ class PreciseEvaluator(HookBase):
         )
         from ..test import TESTERS
 
+        comm.synchronize()
         cfg = trainer.cfg
         if self.test_last:
             cfg.weight = os.path.join(cfg.save_path, "model", "model_last.pth")

@@ -1,13 +1,15 @@
 """Testers: full-scene inference via complementary voxel fragments.
 
 Counterpart of ``pointcloudpdf_tpu/engines/test.py`` (``TesterBase``,
-``SemSegTester``, ``OpenSegTester``, ``IncrSegTester``) in one process: each fragment is
+``SemSegTester``, ``OpenSegTester``, ``IncrSegTester``): each fragment is
 padded to its bucket, run through the model under
 ``torch.inference_mode()`` on ``cfg.device``, and its softmax vote / score
 scatter-mean back to full resolution happens on the host in numpy.  The
 checkpoint is the JAX package's pickled numpy tree, carried onto the
 torch modules by ``bridge.jax_to_state_dict`` and loaded with
-``strict=True``.
+``strict=True``.  Over several ranks each takes every world-th scene and
+writes its predictions; rank 0 gathers the per-scene records and reports
+the metrics, in scene order, as one process would.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..bridge import jax_to_backbone_state_dict, jax_to_state_dict
 from ..datasets import build_dataset
 from ..datasets.utils import padded_collate_fn
 from ..models import build_model
+from ..utils import comm
 from ..utils.checkpoint import load_checkpoint
 from ..utils.events import AverageMeter
 from ..utils.logger import get_root_logger
@@ -47,6 +50,9 @@ def resolve_device(name) -> torch.device:
         raise RuntimeError(
             f"device '{name}' asked for but CUDA is not available; pass "
             "device=cpu to run on the CPU")
+    if device.type == "cuda" and device.index is None and comm.is_distributed():
+        # a rank's card, as ``launch`` set it
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -56,7 +62,8 @@ class TesterBase:
 
     def __init__(self, cfg):
         self.logger = get_root_logger(
-            log_file=os.path.join(cfg.save_path, "test.log") if cfg.save_path else None,
+            log_file=os.path.join(cfg.save_path, "test.log")
+            if cfg.save_path and comm.is_main_process() else None,
         )
         self.logger.info("=> Loading config ...")
         self.cfg = cfg
@@ -143,6 +150,21 @@ class TesterBase:
             if isinstance(v, torch.Tensor) and v.dim() >= 2
         }
 
+    def scene_indices(self):
+        """This rank's scenes: every world-th from its rank."""
+        return range(comm.get_rank(), len(self.test_dataset),
+                     comm.get_world_size())
+
+    def gather_records(self, record):
+        """Every rank's per-scene records on rank 0, in scene order (each
+        record holds its scene's ``index``); None on the other ranks."""
+        self.logger.info("Syncing ...")
+        gathered = comm.gather(record, dst=0)
+        if not comm.is_main_process():
+            return None
+        merged = {k: v for r in gathered for k, v in r.items()}
+        return dict(sorted(merged.items(), key=lambda kv: kv[1]["index"]))
+
     def test(self):
         raise NotImplementedError
 
@@ -161,7 +183,7 @@ class SemSegTester(TesterBase):
         save_path = make_dirs(os.path.join(cfg.save_path, "result"))
         record = {}
 
-        for idx in range(len(self.test_dataset)):
+        for idx in self.scene_indices():
             end = time.time()
             data_dict = self.test_dataset[idx]
             fragment_list = data_dict.pop("fragment_list")
@@ -191,7 +213,8 @@ class SemSegTester(TesterBase):
             inter, union, target = intersection_and_union_np(
                 pred, segment, num_classes, ignore_index
             )
-            record[data_name] = dict(intersection=inter, union=union, target=target)
+            record[data_name] = dict(intersection=inter, union=union,
+                                     target=target, index=idx)
             batch_time.update(time.time() - end)
             mask = union != 0
             iou = np.mean((inter / np.maximum(union, 1e-10))[mask])
@@ -201,7 +224,9 @@ class SemSegTester(TesterBase):
                 f"{segment.size} Batch {batch_time.val:.3f} "
                 f"({batch_time.avg:.3f}) Accuracy {acc:.4f} mIoU {iou:.4f}"
             )
-        self.finalize(record, save_path)
+        record = self.gather_records(record)
+        if record is not None:
+            self.finalize(record, save_path)
 
     def finalize(self, record, save_path):
         cfg = self.cfg
@@ -279,7 +304,7 @@ class OpenSegTester(TesterBase):
         save_path = make_dirs(os.path.join(cfg.save_path, "result"))
         record = {}
 
-        for idx in range(len(self.test_dataset)):
+        for idx in self.scene_indices():
             end = time.time()
             data_dict = self.test_dataset[idx]
             fragment_list = data_dict.pop("fragment_list")
@@ -320,12 +345,13 @@ class OpenSegTester(TesterBase):
             inter, union, target = intersection_and_union_np(
                 pred, segment, num_classes, ignore_index
             )
-            record[data_name] = dict(
-                intersection=inter, union=union, target=target,
-                score=score, segment=segment,
-            )
             aupr, auroc = aupr_and_auroc(
                 score, segment, cfg.unknown_label, ignore_index
+            )
+            record[data_name] = dict(
+                intersection=inter, union=union, target=target,
+                score=score, segment=segment, aupr=aupr, auroc=auroc,
+                index=idx,
             )
             if aupr is not None:
                 aupr_meter.update(aupr)
@@ -343,10 +369,18 @@ class OpenSegTester(TesterBase):
                 f"auroc {auroc if auroc is None else format(auroc, '.4f')} "
                 f"({auroc_meter.avg:.4f})"
             )
-        self.finalize(record, aupr_meter, auroc_meter)
+        record = self.gather_records(record)
+        if record is not None:
+            self.finalize(record)
 
-    def finalize(self, record, aupr_meter, auroc_meter):
+    def finalize(self, record):
         cfg = self.cfg
+        # the per-scene means over every rank's scenes, in scene order
+        aupr_meter, auroc_meter = AverageMeter(), AverageMeter()
+        for m in record.values():
+            if m["aupr"] is not None:
+                aupr_meter.update(m["aupr"])
+                auroc_meter.update(m["auroc"])
         inter = np.sum([m["intersection"] for m in record.values()], axis=0)
         union = np.sum([m["union"] for m in record.values()], axis=0)
         target = np.sum([m["target"] for m in record.values()], axis=0)
@@ -437,7 +471,7 @@ class IncrSegTester(TesterBase):
             lut[old] = new
         record = {}
 
-        for idx in range(len(self.test_dataset)):
+        for idx in self.scene_indices():
             data_dict = self.test_dataset[idx]
             fragment_list = data_dict.pop("fragment_list")
             segment = np.asarray(data_dict.pop("segment")).reshape(-1)
@@ -468,9 +502,15 @@ class IncrSegTester(TesterBase):
                 pred, target, k, ignore_index
             )
             record[data_name] = dict(intersection=inter, union=union,
-                                     target=tgt)
+                                     target=tgt, index=idx)
             logger.info(f"Test: {data_name} [{idx + 1}/{len(self.test_dataset)}]")
 
+        record = self.gather_records(record)
+        if record is not None:
+            self.finalize(record)
+
+    def finalize(self, record):
+        logger = self.logger
         inter = np.sum([m["intersection"] for m in record.values()], axis=0)
         union = np.sum([m["union"] for m in record.values()], axis=0)
         target = np.sum([m["target"] for m in record.values()], axis=0)
@@ -488,6 +528,16 @@ class IncrSegTester(TesterBase):
                 f"{m_iou:.4f}/{m_acc:.4f}/{acc:.4f}."
             )
         logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+
+
+def test_worker(cfg):
+    """One rank of ``tools/test_torch.py`` (``launch``'s ``main_func``)."""
+    from .defaults import default_setup
+
+    cfg = default_setup(cfg)
+    tester = TESTERS.build(
+        dict(type=cfg.get("test", {}).get("type", "SemSegTester"), cfg=cfg))
+    tester.test()
 
 
 def _softmax_np(x: np.ndarray, axis: int = -1) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Trainers: hook-driven epoch loops over an eager PyTorch train step.
 
 Counterpart of ``pointcloudpdf_tpu/engines/train.py`` (``TrainerBase``,
-``Trainer`` / ``DefaultTrainer``, ``OpenSegTrainer``, ``IncrSegTrainer``)
-for one process on one device.  The JAX ``TrainState`` pytree becomes the modules, a
+``Trainer`` / ``DefaultTrainer``, ``OpenSegTrainer``, ``IncrSegTrainer``).
+The JAX ``TrainState`` pytree becomes the modules, a
 ``torch.optim`` optimizer and a host step counter; the jitted step becomes
 forward + loss + backward + ``optimizer.step()``; the learning rate is set
 on every parameter group from the schedule before each step.  The hook
@@ -13,6 +13,15 @@ dropout key, so a resumed run replays the same draws; the global RNG is
 not touched.  Checkpoints keep the JAX package's tree
 (``state = {params, batch_stats, opt_state, step}`` through ``bridge``), so
 either package's testers load what this trainer saves.
+
+Data-parallel over ranks (``launch``), a step computes what one process
+computes on the global batch, as the JAX step does under GSPMD: each rank's
+loader takes its share of the batch (the shard order interleaves, so
+step k's union over ranks is global batch k), the BatchNorm statistics are
+the global batch's, the losses divide by the global batch's weight counts,
+and the gradients are summed over ranks before the optimizer steps; the
+logged losses are summed too.  Parameters are broadcast from rank 0 at
+start.  Mix3D pairs crops within a rank's batch, as the reference does.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ..utils.logger import get_root_logger
 from ..utils.optimizer import build_optimizer
 from ..utils.registry import Registry
 from ..utils.scheduler import build_scheduler
+from .defaults import default_setup, per_rank_batch
 from .hooks import HookBase, build_hooks
 from .test import resolve_device
 
@@ -85,13 +95,32 @@ class TrainerBase:
         raise NotImplementedError
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
     """The drop-path generator's seed at host step ``step``, the JAX step's
-    ``fold_in(PRNGKey(seed), step + 1)``: both numbers hashed into 63 bits
-    (a CPU generator keeps the low 32 of them, so every bit must mix)."""
-    state = np.random.SeedSequence([int(seed), int(step) + 1]).generate_state(
-        1, np.uint64)
+    ``fold_in(PRNGKey(seed), step + 1)``: the numbers hashed into 63 bits
+    (a CPU generator keeps the low 32 of them, so every bit must mix).
+    Ranks past 0 fold in their rank, so each draws its own masks; rank 0
+    draws a one-process run's."""
+    entropy = [int(seed), int(step) + 1] + ([int(rank)] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return int(state[0]) & ((1 << 63) - 1)
+
+
+def global_outputs(out: Dict) -> Dict:
+    """A step's logged losses summed over ranks, in one all-reduce: each
+    rank holds its part of the global batch's loss."""
+    if not comm.is_distributed() or not out:
+        return out
+    summed = comm.all_reduce_(torch.stack([v.float() for v in out.values()]))
+    return dict(zip(out, summed))
+
+
+def train_worker(cfg):
+    """One rank of ``tools/train_torch.py`` (``launch``'s ``main_func``)."""
+    cfg = default_setup(cfg)
+    trainer = TRAINERS.build(
+        dict(type=cfg.get("train", {}).get("type", "DefaultTrainer"), cfg=cfg))
+    trainer.train()
 
 
 def _to_numpy(tree):
@@ -139,6 +168,7 @@ class Trainer(TrainerBase):
         self.generator = torch.Generator(device=self.device)
         n_params = sum(p.numel() for _, p in self.named_parameters())
         self.logger.info(f"Initialized state: {n_params / 1e6:.2f}M params")
+        self.replicate()
         self.register_hooks(cfg.get("hooks"))
 
     # -- building ----------------------------------------------------------
@@ -156,7 +186,7 @@ class Trainer(TrainerBase):
         )
         return DataLoader(
             dataset,
-            batch_size=self.cfg.batch_size,
+            batch_size=per_rank_batch(self.cfg.batch_size),
             shuffle=True,
             drop_last=True,
             collate_fn=collate,
@@ -176,7 +206,7 @@ class Trainer(TrainerBase):
         )
         return DataLoader(
             dataset,
-            batch_size=self.cfg.get("batch_size_val") or 1,
+            batch_size=per_rank_batch(self.cfg.get("batch_size_val") or None),
             shuffle=False,
             drop_last=False,
             collate_fn=collate,
@@ -209,6 +239,33 @@ class Trainer(TrainerBase):
         for prefix, module in self.modules().items():
             for name, param in module.named_parameters():
                 yield (f"{prefix}.{name}" if prefix else name), param
+
+    def replicate(self):
+        """Every rank takes rank 0's parameters and buffers (the JAX
+        ``replicate_tree``): ranks build their modules from one seed, and
+        this makes them equal whatever the initialisation drew."""
+        if not comm.is_distributed():
+            return
+        modules = {id(m): m for m in (self.model, *self.modules().values())}
+        for module in modules.values():
+            for tensor in module.state_dict().values():
+                comm.broadcast_(tensor)
+
+    def sum_gradients(self):
+        """The gradients summed over ranks, in one flat bucket.  With every
+        loss normalised by the global batch's counts the sum is the
+        gradient of the global batch's loss, where DDP's mean would not
+        be.  Every rank's forward reaches the same parameters."""
+        if not comm.is_distributed():
+            return
+        grads = [p.grad for _, p in self.named_parameters() if p.grad is not None]
+        if not grads:
+            return
+        flat = comm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
     def build_optimizer(self):
         return build_optimizer(
@@ -331,6 +388,7 @@ class Trainer(TrainerBase):
             out = self.forward_train(self.model, batch)
             loss, parts = self.compute_loss(out, batch)
         loss.backward()
+        self.sum_gradients()
         self.optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
@@ -346,10 +404,10 @@ class Trainer(TrainerBase):
     def _dispatch_train(self, batch, *args):
         lr = self._set_lr()
         self.generator.manual_seed(step_seed(self.cfg.get("seed") or 0,
-                                             self._host_step))
+                                             self._host_step, comm.get_rank()))
         out = self.train_step(batch, *args)
         self._host_step += 1
-        self.comm_info["model_output_dict"] = out
+        self.comm_info["model_output_dict"] = global_outputs(out)
         self.comm_info["lr"] = lr
 
     def train(self):
@@ -358,6 +416,8 @@ class Trainer(TrainerBase):
             f"{len(self.train_loader)} iters/epoch) >>>>>>>>>>>>>>>>"
         )
         super().train()
+        if self.writer is not None:
+            self.writer.close()
         self.logger.info("==>> Training done.")
 
 
@@ -458,6 +518,7 @@ class OpenSegTrainer(Trainer):
                 parts["loss_rec"] = rec_l
             parts["loss"] = loss
         loss.backward()
+        self.sum_gradients()
         if frozen:
             # the optimizer state of a frozen recognizer moves as in the JAX
             # step (which zeroes its updates, not its gradients): step on a
@@ -550,6 +611,22 @@ class OpenSegTrainer(Trainer):
         done.record()
         return host, done.synchronize
 
+    def pseudo_masks(self, input_dict: Dict, msp: np.ndarray, ml: np.ndarray
+                     ) -> np.ndarray:
+        """The host graph stage on a batch's two score sheets: (B, N) masks
+        of the points to pseudo-label unknown.  An item's seed follows its
+        place in the global batch (rank r's j-th item is item j * world + r
+        of it, the loader's shard order) and the host step."""
+        coord_h = np.asarray(input_dict["coord"], np.float32)
+        count_h = np.asarray(input_dict["count"])
+        items = np.arange(len(count_h)) * comm.get_world_size() + comm.get_rank()
+        return self.recognizer.pseudo_masks_from_scores(
+            coord_h, msp, ml, count_h,
+            seed=(self.cfg.get("seed") or 0) + self._host_step + items,
+            neighbors=None,
+            ball_radius=self._host_radii(coord_h, count_h),
+        )
+
     def run_step(self):
         input_dict = self.comm_info["input_dict"]
         batch = self.device_batch(input_dict)
@@ -567,15 +644,7 @@ class OpenSegTrainer(Trainer):
         self._flush_pending()
         # 3. host: the score sheets + graph stage, overlapped with step 2
         ready()
-        msp, ml = msp_h.numpy(), ml_h.numpy()
-        coord_h = np.asarray(input_dict["coord"], np.float32)
-        count_h = np.asarray(input_dict["count"])
-        masks = rec.pseudo_masks_from_scores(
-            coord_h, msp, ml, count_h,
-            seed=(self.cfg.get("seed") or 0) + self._host_step,
-            neighbors=None,
-            ball_radius=self._host_radii(coord_h, count_h),
-        )
+        masks = self.pseudo_masks(input_dict, msp_h.numpy(), ml_h.numpy())
         # host copy of the TRAIN labels (post label-rename semantics:
         # device_batch substitutes segment_known when present)
         segment = np.asarray(input_dict.get("segment_known",
@@ -585,8 +654,11 @@ class OpenSegTrainer(Trainer):
             self.device, non_blocking=True)
         # surfaced via InformationWriter so runs can see the
         # pseudo-labelling fire
+        count_h = np.asarray(input_dict["count"])
         valid = np.arange(masks.shape[1])[None, :] < count_h.reshape(-1, 1)
-        flagged = float(masks[valid].mean()) if valid.any() else 0.0
+        n_flagged, n_valid = np.sum(comm.all_gather(
+            (int(masks[valid].sum()), int(valid.sum()))), axis=0)
+        flagged = float(n_flagged / n_valid) if n_valid else 0.0
         self._pending = (batch, rec_w, flagged)
 
     def train(self):
@@ -665,6 +737,7 @@ class IncrSegTrainer(Trainer):
                 student, self.teacher_logits(batch), batch["segment_incr"],
                 batch["mask"])
         loss.backward()
+        self.sum_gradients()
         self.optimizer.step()
         return {"loss": loss.detach()}
 

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from ..models.builder import build_model
 from ..models.losses import build_criteria
+from ..utils import comm
 from .builder import INCREMENTALLEARNER
 
 
@@ -25,7 +26,7 @@ def incr_distill_kl_loss(pred, target, segment_incr, mask,
     labels (-1 elsewhere), ``mask`` (B, N) valid points.  q is the teacher's
     softmax zero-padded to K_new, one-hot at the labelled new-class points;
     the mean runs over valid points (the reference's ``batchmean`` over
-    packed points).  In float32."""
+    packed points; the global batch's over several ranks).  In float32."""
     k_new, k_base = pred.shape[-1], target.shape[-1]
     log_p = torch.log_softmax(pred.float() / pred_temp, dim=-1)
     soft = F.pad(torch.softmax(target.float() / target_temp, dim=-1),
@@ -39,7 +40,8 @@ def incr_distill_kl_loss(pred, target, segment_incr, mask,
                         torch.zeros_like(q))
     kl = (q * (log_q - log_p)).sum(dim=-1)
     valid = mask.to(kl.dtype)
-    return loss_weight * (kl * valid).sum() / valid.sum().clamp_min(1.0)
+    return loss_weight * (kl * valid).sum() / comm.sum_over_ranks(
+        valid.sum()).clamp_min(1.0)
 
 
 @INCREMENTALLEARNER.register_module("PointPdf-incr-v1m1")

@@ -30,6 +30,7 @@ from torch.nn import functional as F
 from ..builder import MODELS, build_model
 from ..default import takes_generator
 from ..losses import build_criteria
+from ...utils import comm
 from ..norm import MaskedBatchNorm
 
 
@@ -94,14 +95,17 @@ class CACSegmentor(nn.Module):
 
     def _adaptive(self, feat, target, mask):
         """Ground-truth class means in place of the prototypes where a class
-        is present (reference :73-101), over the whole batch."""
+        is present (reference :73-101), over the whole batch (over ranks,
+        the global batch's)."""
         c = feat.shape[-1]
         flat = feat.reshape(-1, c)
         tgt = target.reshape(-1).long()
         m = (mask.reshape(-1) & (tgt != -1)).to(flat.dtype)
         safe = tgt.clamp(0, self.num_classes - 1)
-        sums = flat.new_zeros((self.num_classes, c)).index_add(0, safe, flat * m[:, None])
-        counts = flat.new_zeros((self.num_classes,)).index_add(0, safe, m)
+        sums = comm.sum_over_ranks(flat.new_zeros((self.num_classes, c)).index_add(
+            0, safe, flat * m[:, None]))
+        counts = comm.sum_over_ranks(
+            flat.new_zeros((self.num_classes,)).index_add(0, safe, m))
         class_mean = sums / torch.clamp(counts[:, None], min=1e-4)
         proto = self.seg_head.weight
         new_proto = torch.where((counts > 0)[:, None], class_mean, proto.detach())
@@ -111,7 +115,7 @@ class CACSegmentor(nn.Module):
 
     def _distill_loss(self, pred, soft, target, mask, smoothness=0.5):
         """Class-balanced, entropy-weighted distillation (reference
-        :152-200)."""
+        :152-200), its class sums the global batch's over ranks."""
         soft = soft.detach()
         k = pred.shape[-1]
         sm = torch.softmax(soft, dim=-1)
@@ -125,12 +129,15 @@ class CACSegmentor(nn.Module):
         flat_t = target.reshape(-1).clamp(0, k - 1)
         flat_l = loss.reshape(-1)
         flat_e = entropy.reshape(-1) * valid.reshape(-1)
-        num = flat_l.new_zeros((k,)).index_add(0, flat_t, flat_l * flat_e)
-        den = flat_l.new_zeros((k,)).index_add(0, flat_t, flat_e)
+        num = comm.sum_over_ranks(
+            flat_l.new_zeros((k,)).index_add(0, flat_t, flat_l * flat_e))
+        den = comm.sum_over_ranks(
+            flat_l.new_zeros((k,)).index_add(0, flat_t, flat_e))
         has = den > 1e-4
         per_class = torch.where(has, num / torch.clamp(den, min=1e-4),
                                 torch.zeros_like(num))
-        return per_class.sum() / torch.clamp(has.sum().to(num.dtype), min=1e-4)
+        return comm.rank_share(
+            per_class.sum() / torch.clamp(has.sum().to(num.dtype), min=1e-4))
 
     def forward(self, input_dict: Dict, generator=None) -> Dict:
         mask = input_dict["mask"].to(torch.bool)

@@ -8,12 +8,18 @@ absent from the labels leave the mean.  The errors are sorted descending
 by ``argsort(-errors, stable=True)``, the JAX package's stable order, ties
 included: the loss does not depend on how ties are ordered, its gradient
 does.  Plain PyTorch, as the JAX function is plain jnp.
+
+Over several ranks each rank sorts its own batch's errors, as in the
+reference's DDP, and its loss counts for its share (the mean over ranks):
+the JAX package's Lovasz under GSPMD is the global batch's.  The errors are
+not all-gathered for it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...utils import comm
 from .builder import LOSSES
 
 
@@ -61,4 +67,5 @@ class LovaszLoss:
             probs = probs[:, :self.class_seen]
         valid = target != self.ignore_index
         safe_t = target.clamp(0, probs.shape[1] - 1)
-        return lovasz_softmax_flat(probs, safe_t, valid) * self.loss_weight
+        return comm.rank_share(
+            lovasz_softmax_flat(probs, safe_t, valid) * self.loss_weight)

@@ -3,7 +3,10 @@
 ``SmoothCELoss``, ``BinaryFocalLoss``, ``FocalLoss`` and ``DiceLoss``.
 
 Every loss honours ``ignore_index``, so padded points contribute nothing:
-the static-shape replacement for the reference's boolean indexing.
+the static-shape replacement for the reference's boolean indexing.  Over
+several ranks a mean over points divides by the weight count of the
+global batch, so the ranks' losses (and gradients) sum to the one-process
+loss of that batch, as the JAX package's loss under GSPMD.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 from torch.nn import functional as F
 
+from ...utils import comm
 from .builder import LOSSES
 
 
@@ -21,7 +25,9 @@ def _flatten(pred, target):
 
 
 def masked_mean(values, weights, eps=1e-12):
-    return (values * weights).sum() / torch.clamp(weights.sum(), min=eps)
+    """This rank's part of the global batch's weighted mean."""
+    return (values * weights).sum() / torch.clamp(
+        comm.sum_over_ranks(weights.sum()), min=eps)
 
 
 @LOSSES.register_module()
@@ -110,7 +116,9 @@ class BinaryFocalLoss:
         alpha = self.alpha * target + (1 - self.alpha) * (1 - target)
         focal = alpha * (1 - pt) ** self.gamma * bce
         if self.reduce:
-            focal = focal.mean()
+            focal = (focal.sum() / comm.sum_over_ranks(
+                focal.new_tensor(float(focal.numel())))
+                if comm.is_distributed() else focal.mean())
         return focal * self.loss_weight
 
 
@@ -140,7 +148,8 @@ class FocalLoss:
             one_minus_pt ** self.gamma)
         loss = _bce_with_logits(pred, one_hot) * focal_weight * valid
         if self.reduction == "mean":
-            loss = loss.sum() / torch.clamp(valid.sum() * num_classes, min=1e-12)
+            loss = loss.sum() / torch.clamp(
+                comm.sum_over_ranks(valid.sum()) * num_classes, min=1e-12)
         else:
             loss = loss.sum()
         return self.loss_weight * loss
@@ -161,6 +170,10 @@ class DiceLoss:
         prob = torch.softmax(pred.float(), dim=1) * valid
         one_hot = F.one_hot(target.clamp(0, num_classes - 1),
                             num_classes).float() * valid
-        num = (prob * one_hot).sum(dim=0) * 2 + self.smooth
-        den = (prob ** self.exponent + one_hot ** self.exponent).sum(dim=0) + self.smooth
-        return self.loss_weight * (1 - num / den).mean()
+        # the per-class sums of the global batch; each rank holds the whole
+        # loss, and counts for its share
+        num = comm.sum_over_ranks((prob * one_hot).sum(dim=0)) * 2 + self.smooth
+        den = comm.sum_over_ranks(
+            (prob ** self.exponent + one_hot ** self.exponent).sum(dim=0)
+        ) + self.smooth
+        return comm.rank_share(self.loss_weight * (1 - num / den).mean())

@@ -19,13 +19,18 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils import comm
+
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over all leading dims of x (..., C) with a validity mask
     broadcastable to x.shape[:-1].  ``momentum`` follows torch:
     running = (1 - m) * running + m * batch; the running variance is
     unbiased, the normalisation biased.  Without ``affine`` there is no
-    weight or bias (torch's ``affine=False``)."""
+    weight or bias (torch's ``affine=False``).  In training over several
+    ranks the statistics are the global batch's (``comm.sum_moments``), so
+    the running statistics stay equal on every rank; eval mode does no
+    collective."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True):
@@ -54,9 +59,12 @@ class MaskedBatchNorm(nn.Module):
                 w = torch.ones(x.shape[:-1], dtype=xf.dtype, device=x.device)
             else:
                 w = mask.expand(x.shape[:-1]).to(xf.dtype)
-            cnt = torch.clamp(w.sum(), min=1.0)
-            mean = (xf * w[..., None]).sum(dim=dims) / cnt
-            var = (xf * xf * w[..., None]).sum(dim=dims) / cnt - mean * mean
+            sx, sxx, n = comm.sum_moments(
+                (xf * w[..., None]).sum(dim=dims),
+                (xf * xf * w[..., None]).sum(dim=dims), w.sum())
+            cnt = torch.clamp(n, min=1.0)
+            mean = sx / cnt
+            var = sxx / cnt - mean * mean
             var = torch.clamp(var, min=0.0)
             self._update_running(mean, var, cnt)
         else:

@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from ..utils import comm
 from . import _cuda
 from .geometry import gather_rows
 from .gva import split_tf32
@@ -271,27 +272,31 @@ def attention_train_affines(x_q, x_k, coord, idx, nmask,
     feeds the next pre-BN activation.  ``bn_*`` are the layer's
     ``MaskedBatchNorm`` modules; their ``train_affine`` also updates the
     running statistics.  Plain differentiable PyTorch: the gradient through
-    mean and variance comes from autograd.  Materialises p_r, r and u at
-    (B, N, K, .)."""
+    mean and variance comes from autograd.  Over several ranks the
+    statistics are the global batch's, as a ``MaskedBatchNorm`` takes them.
+    Materialises p_r, r and u at (B, N, K, .)."""
     flag = nmask.to(torch.float32)
-    cnt = torch.clamp(flag.sum(), min=1.0)
+    n = flag.sum()
 
     def mstats(x):
-        mean = torch.einsum("bnk,bnkc->c", flag, x) / cnt
-        var = torch.einsum("bnk,bnkc->c", flag, x * x) / cnt - mean * mean
-        return mean, var
+        sx, sxx, n_all = comm.sum_moments(
+            torch.einsum("bnk,bnkc->c", flag, x),
+            torch.einsum("bnk,bnkc->c", flag, x * x), n)
+        cnt = torch.clamp(n_all, min=1.0)
+        mean = sx / cnt
+        return mean, sxx / cnt - mean * mean, cnt
 
     # statistics in f32 whatever the autocast state, as the kernels compute
     with torch.autocast(x_q.device.type, enabled=False):
         x_q, x_k = x_q.float(), x_k.float()
         p_rel = gather_rows(coord, idx) - coord[:, :, None, :]
         z1 = p_rel @ p1_w + p1_b
-        s_p, t_p = bn_p.train_affine(*mstats(z1), cnt)
+        s_p, t_p = bn_p.train_affine(*mstats(z1))
         p_r = torch.relu(z1 * s_p + t_p) @ p2_w + p2_b
         r = gather_rows(x_k, idx) - x_q[:, :, None, :] + p_r
-        s1, t1 = bn_w1.train_affine(*mstats(r), cnt)
+        s1, t1 = bn_w1.train_affine(*mstats(r))
         u = torch.relu(r * s1 + t1) @ w1_w + w1_b
-        s2, t2 = bn_w2.train_affine(*mstats(u), cnt)
+        s2, t2 = bn_w2.train_affine(*mstats(u))
     return s_p, t_p, s1, t1, s2, t2
 
 

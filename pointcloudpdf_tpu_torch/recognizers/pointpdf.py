@@ -124,7 +124,7 @@ class PointPdfV1:
         msp: np.ndarray,         # (B, N) device-computed
         ml: np.ndarray,          # (B, N) device-computed, normalized
         count: np.ndarray,
-        seed: int = 0,
+        seed=0,                  # int, or (B,) seeds (pseudo_labeling_batch)
         neighbors: np.ndarray = None,
         ball_radius: float = None,
     ) -> np.ndarray:

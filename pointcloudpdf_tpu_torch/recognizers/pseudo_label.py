@@ -1,7 +1,9 @@
 # Copied from pointcloudpdf_tpu/recognizers/pseudo_label.py; keep in step.  Two
 # departures, so that numpy and scipy are all it needs: the two-component
 # mixture of the MST weights is fitted here (``_two_gaussians``) instead of by
-# sklearn, and the batch runs on a thread pool instead of joblib.
+# sklearn, and the batch runs on a thread pool instead of joblib.  A third for
+# the data-parallel trainer: ``pseudo_labeling_batch`` also takes one seed an
+# item.
 """PDF pseudo-labeling: host-side graph search over device neighbor tables.
 
 Re-implementation (numpy/scipy) of the reference pseudo-labeling
@@ -342,7 +344,7 @@ def pseudo_labeling_batch(
     seg_logits: Optional[np.ndarray],   # (B, N, K) or None with scores
     neighbors: Optional[np.ndarray],    # (B, N, Kn) int, -1 invalid
     count: np.ndarray,        # (B,) valid points per sample
-    seed: int = 0,
+    seed=0,                   # int (item i draws from seed + i) or (B,) seeds
     n_jobs: int = 4,
     scores: Optional[tuple] = None,     # ((B, N) msp, (B, N) ml)
     ball_radius: Optional[float] = None,
@@ -355,10 +357,12 @@ def pseudo_labeling_batch(
     ``neighbors`` is None a :class:`LazyNeighborTable` is built per sample
     (radius ``ball_radius`` — scalar or per-sample (B,) array, cap
     ``ball_k``) whose rows materialize only where the graph chain reads
-    them."""
+    them.  ``seed`` is the first item's seed, or one seed an item (an item's
+    seed follows its place in the global batch over several ranks)."""
     from concurrent.futures import ThreadPoolExecutor
 
     B, N = coord.shape[:2]
+    seeds = seed + np.arange(B) if np.ndim(seed) == 0 else np.asarray(seed)
     if neighbors is None:
         assert ball_radius is not None
     radii = np.broadcast_to(np.asarray(ball_radius, np.float64), (B,)) \
@@ -372,7 +376,7 @@ def pseudo_labeling_batch(
             coord[i, :c],
             None if seg_logits is None else seg_logits[i, :c],
             nbr,
-            rng=np.random.RandomState(seed + i),
+            rng=np.random.RandomState(int(seeds[i])),
             scores=None if scores is None else
             (scores[0][i, :c], scores[1][i, :c]),
             **kwargs,

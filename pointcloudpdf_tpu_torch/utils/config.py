@@ -1,4 +1,5 @@
-# Copied from pointcloudpdf_tpu/utils/config.py; keep in step.
+# Copied from pointcloudpdf_tpu/utils/config.py; keep in step.  One departure:
+# ``Config`` pickles (``__reduce__``), as ``launch`` hands it to spawned ranks.
 """Python-file configuration system.
 
 Configs are executable Python files whose top-level variables become the
@@ -119,6 +120,9 @@ class Config:
     @property
     def filename(self) -> Optional[str]:
         return self._filename
+
+    def __reduce__(self):
+        return Config, (self.to_dict(), self._filename)
 
     # -- mapping / attribute protocol -------------------------------------
     def __getattr__(self, name: str) -> Any:

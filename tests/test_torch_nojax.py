@@ -4,7 +4,8 @@ package imports, the shipped open-set configs load, a Seg26 forward, a
 narrow Stratified Transformer forward (ST-v1m1 + ST recognizer) and a narrow
 PT-v2m2 forward run on the CPU, the open-set trainer takes one training step,
 the incremental trainer one distillation step and the default trainer one
-PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step.  The port's
+PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step, and ``launch`` runs a
+gloo group of one (the data-parallel engine's collectives).  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
 """
@@ -198,6 +199,16 @@ cac._dispatch_train(cac.device_batch(cac_input))
 out = cac.comm_info["model_output_dict"]
 assert set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"}
 assert all(np.isfinite(float(v)) for v in out.values())
+from pointcloudpdf_tpu_torch.engines.launch import launch
+from pointcloudpdf_tpu_torch.utils import comm
+seen = []
+
+def in_group():
+    total = float(comm.sum_over_ranks(torch.ones(())))
+    seen.append((comm.get_world_size(), comm.all_gather(comm.get_rank()), total))
+
+launch(in_group, num_gpus_per_machine=1, backend="gloo", device="cpu")
+assert seen == [(1, [0], 1.0)] and not comm.is_distributed()
 assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)
 print("NOJAX_OK")
 """
@@ -220,7 +231,8 @@ def test_port_runs_without_jax():
     "tools/attn_bwd_compare_torch.py", "tools/st_attention_compare_torch.py",
     "tools/fps_compare_torch.py", "tools/kpconv_compare_torch.py",
     "tools/kpconv_clocks.py", "tests/test_torch_kernels.py",
-    "tests/test_torch_fps_windows.py", "tests/test_torch_kpconv_tiles.py"])
+    "tests/test_torch_fps_windows.py", "tests/test_torch_kpconv_tiles.py",
+    "tests/torch_ddp_ranks.py"])
 def test_no_jax_import_in_port_sources(path):
     # the JAX package is off limits too, every module of it
     pattern = re.compile(r"^\s*(import|from) (jax|flax|pointcloudpdf_tpu\b(?!_torch))")

@@ -225,6 +225,18 @@ def test_trainer_asked_for_cuda_raises_without_it(run):
                                      "--options", f"save_path={run['root'] / 'exp_cuda'}"])
 
 
+def test_more_cuda_ranks_than_cards_raises(run):
+    """``--num-gpus 2 --device cuda`` on a machine with fewer cards raises:
+    NCCL takes one card a rank (only ``launch``'s explicit gloo shares
+    one)."""
+    if torch.cuda.is_available() and torch.cuda.device_count() >= 2:
+        pytest.skip("two CUDA devices are present")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        _run_tool("train_torch.py", [
+            "--config-file", run["config"], "--device", "cuda", "--num-gpus", "2",
+            "--options", f"save_path={run['root'] / 'exp_two_cuda'}"])
+
+
 # -- PT-v2 through tools/train_torch.py, with PreciseEvaluator ------------------------------------------------
 
 _PTV2_CONFIG = '''

@@ -1,7 +1,9 @@
 """Testing entry point of the PyTorch port (counterpart of tools/test.py).
 
 Same flags and config files as tools/test.py, plus ``--device`` (default:
-the config's ``device``, else ``cuda``; the CPU runs only when asked for):
+the config's ``device``, else ``cuda``; the CPU runs only when asked for).
+``--num-gpus N`` runs N ranks, one a CUDA device (gloo ranks with
+``--device cpu``); each takes every N-th scene and rank 0 reports:
 
     python tools/test_torch.py \
         --config-file configs/s3dis/openseg-pt-v1-0-pointpdf-v1m1-base.py \
@@ -16,23 +18,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from pointcloudpdf_tpu_torch.engines import (  # noqa: E402
     default_argument_parser,
     default_config_parser,
-    default_setup,
 )
-from pointcloudpdf_tpu_torch.engines.test import TESTERS  # noqa: E402
+from pointcloudpdf_tpu_torch.engines.launch import launch  # noqa: E402
+from pointcloudpdf_tpu_torch.engines.test import test_worker  # noqa: E402
 
 
 def main():
     args = default_argument_parser().parse_args()
-    if args.num_gpus != 1:
-        raise SystemExit("tools/test_torch.py runs one process on one device")
     cfg = default_config_parser(args.config_file, args.options)
     if args.device is not None:
         cfg.device = args.device
-    cfg = default_setup(cfg)
-    tester = TESTERS.build(
-        dict(type=cfg.get("test", {}).get("type", "SemSegTester"), cfg=cfg)
-    )
-    tester.test()
+    launch(test_worker, num_gpus_per_machine=args.num_gpus, cfg=(cfg,),
+           device=cfg.device)
 
 
 if __name__ == "__main__":
