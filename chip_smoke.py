@@ -87,16 +87,35 @@ Phases, in order; any failure exits non-zero:
    step's gradient, the running statistics (equal on both ranks, within
    ``TOL_DDP_STATS`` of one process's after the first step), the
    parameters equal on both ranks after every step, K1-K4's launches in
-   each rank equal to one process's, each batch's pseudo-labels from the
-   start's weights bit-equal (those of the steps, after an update, are
-   printed as an IoU), and one process run twice on the same batches;
+   each rank equal to one process's, each batch's score sheets from the
+   start's weights within ``TOL_DDP_SHEETS`` and the host graph stage on
+   one process's sheets with the ranks' seeds bit-equal to its
+   pseudo-labels (those on a rank's own sheets, and those of the steps
+   after an update, printed as an IoU), and one process run twice on the
+   same batches;
    (b) one step past ``start_epoch`` through ``launch(backend="nccl")`` at
    world 1 (every collective of the path issued), its outputs bit-equal to
    the step without ``launch``; (c) ``tools/test_torch.py``'s path on two
    gloo ranks over phase 4's room and a second one, pred and score files
    bit-equal to one process's (phase 4's room's to phase 4's too) and the
    same metrics.  It prints the step's ms at world 1 and 2, the gradient
-   all-reduce's ms and the peak memory of a rank.
+   all-reduce's ms and the peak memory of a rank;
+13. the SpUNet family (no kernel of its own, so no K1-K7 launch anywhere
+   in it, asserted): (a) seeded random SpUNet-v1m1 weights through the
+   bridge, ``tools/test_torch.py`` on the shipped S3DIS SpUNet config over
+   phase 4's room, the largest fragment's voxel maps (neighbour tables,
+   parent maps) built on the card equal to the CPU's bit for bit, its
+   logits within ``TOL_SPUNET_LOGITS`` of the port's CPU forward, no point
+   dropped by the level capacities; (b) ``tools/train_torch.py`` on that
+   config at full width over phase 5's rooms (the largest batch of 12, 6,
+   3, 2, 1 that fits; autocast and Mix3D as shipped), one epoch of two
+   steps and the evaluator, ``tools/test_torch.py`` on the checkpoint, then
+   one batch's train step timed, its peak memory and its share in
+   PyTorch's ``indexing_backward_kernel`` (at most
+   ``MAX_INDEXING_BACKWARD_SHARE``); (c) one ``DefaultTrainer`` step and
+   one eval forward each of MinkUNet34C and of CAC-v1m1 over SpUNet (2 x
+   8,000 points, ScanNet's grid), and an eval forward of SpUNet-v1m3 under
+   each of its three conditions.
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1308,7 +1327,8 @@ def run_tool(tool, argv):
     return "\n".join(lines)
 
 
-def run_slice(work, config, name, per_forward=None, gva_by_width=None):
+def run_slice(work, config, name, per_forward=None, gva_by_width=None,
+              fragment_check=None):
     """A serving slice end to end on ``config``: the tester over the
     synthetic room with the launch counts read, then one fragment again on
     the plain versions.  ``per_forward`` gives the launches of one forward
@@ -1316,7 +1336,9 @@ def run_slice(work, config, name, per_forward=None, gva_by_width=None):
     kernel it leaves out must not launch; ``gva_by_width`` gives K7's by
     width.  An open-set config
     (``OpenSegTester``) also writes and checks the scores and the AUPR
-    line; a closed-set one (``SemSegTester``) has neither."""
+    line; a closed-set one (``SemSegTester``) has neither.
+    ``fragment_check(tester, fragment, batch)`` checks more of the largest
+    fragment."""
     import torch
 
     from pointcloudpdf_tpu_torch.models import build_model
@@ -1428,6 +1450,8 @@ def run_slice(work, config, name, per_forward=None, gva_by_width=None):
           f"{batch['coord'].shape[1]}): kernels {ms:.3f} ms, plain {plain_ms:.3f} ms; "
           f"tester wall {wall / (len(sizes) or 1):.3f} s per fragment "
           f"({len(sizes)} fragments)")
+    if fragment_check is not None:
+        fragment_check(tester, fragment, batch)
     launches.update(knn_kernels)
     return launches
 
@@ -1930,6 +1954,8 @@ def two_batch_splits(work, data_root):
     ``Batch{b}``, of 2 b of its rooms (links), and its val area: an epoch
     of two iterations at any batch size.  Returns the root."""
     root = os.path.join(work, "s3dis_two_batches")
+    if os.path.isdir(root):
+        return root
     os.makedirs(root)
     os.symlink(os.path.join(data_root, "Area_5"), os.path.join(root, "Area_5"))
     rooms = sorted(glob.glob(os.path.join(data_root, "Area_[1-46]", "*.npz")))
@@ -2138,8 +2164,17 @@ def run_cac_step(work, data_root):
 
 DDP_SIZES = (16, 8, 4)  # global batch of phase 12(a): 2 x 8 first, as phase 5's 16
 # running statistics after the first step, world 2 against world 1, of max(1, |stat|):
-# the attention stats pass sums B N K = 21M rows in f32 (1.6e-4 measured, PR 15)
+# the attention stats pass sums B N K = 21M rows in f32 in another order (1.77e-4
+# measured); in float64 the two layouts agree to 1e-10, running statistics and
+# the next batch's pseudo-labels alike
+# (tests/test_torch_ddp.py::test_float64_pseudo_labels_after_an_update_match_one_process),
+# so that order is the whole difference
 TOL_DDP_STATS = 1e-3
+# the score sheets from equal weights, world 2 against world 1, of max |sheet|: the
+# same f32 sums, but cuBLAS picks its GEMM by the row count and rounds apart
+# (4.8e-7-6.6e-7 of max |sheet| measured), which flips a few points in the host graph stage at
+# some batches; the graph stage on equal sheets is held bit for bit
+TOL_DDP_SHEETS = 1e-5
 
 
 def gradient_gap(grads, ref):
@@ -2235,19 +2270,23 @@ def ddp_steps(trainer, batches):
     return steps, grads
 
 
-def start_masks(trainer, batches):
-    """Each batch's pseudo-labels from the start's weights: the score pass
-    and the host graph stage, as ``run_step`` computes them past
-    ``start_epoch``."""
+def start_sheets(trainer, batches):
+    """Each batch's two score sheets from the start's weights (the score
+    pass ``run_step`` makes past ``start_epoch``), on the host."""
     import torch
 
-    masks = []
+    sheets = []
     for input_dict in batches:
         with torch.inference_mode():
-            sheets = trainer.pseudo_forward(trainer.device_batch(input_dict))
-        masks.append(trainer.pseudo_masks(input_dict,
-                                          *(t.cpu().numpy() for t in sheets)))
-    return masks
+            out = trainer.pseudo_forward(trainer.device_batch(input_dict))
+        sheets.append([t.cpu().numpy() for t in out])
+    return sheets
+
+
+def graph_masks(trainer, batches, sheets):
+    """The host graph stage's pseudo-labels of each batch on its score
+    sheets, each item seeded by its place in the global batch."""
+    return [trainer.pseudo_masks(b, *s) for b, s in zip(batches, sheets)]
 
 
 def flagged_iou(a, b):
@@ -2284,7 +2323,11 @@ def ddp_rank(work, cfg):
         module.load_state_dict(start[name])
     with open(os.path.join(work, "ddp_batches.pkl"), "rb") as f:
         batches = [shard_input(b, rank, world) for b in pickle.load(f)]
-    masks = start_masks(trainer, batches)
+    with open(os.path.join(work, "ddp_sheets.pkl"), "rb") as f:
+        given = [[s[rank::world] for s in sheets] for sheets in pickle.load(f)]
+    sheets = start_sheets(trainer, batches)
+    masks = graph_masks(trainer, batches, sheets)
+    seeded = graph_masks(trainer, batches, given)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     all_reduce, calls = torch.distributed.all_reduce, []
@@ -2301,7 +2344,7 @@ def ddp_rank(work, cfg):
     launches = read_launches()
     launches.update(read_knn_kernels())
     result = dict(steps=steps, grads=grads, launches=launches, masks=masks,
-                  all_reduces=len(calls),
+                  sheets=sheets, seeded=seeded, all_reduces=len(calls),
                   peak=torch.cuda.max_memory_allocated() / 2 ** 30,
                   device=str(trainer.device))
     with open(os.path.join(work, f"ddp_rank{rank}.pkl"), "wb") as f:
@@ -2311,8 +2354,9 @@ def ddp_rank(work, cfg):
 def ddp_one_process(work, data_root, batch_size, batches=None):
     """Phase 12(a)'s reference: the three steps in this process on the
     global batches, which it draws from the shipped train loader (epoch 0's
-    two, epoch 1's first) and saves with the start for the ranks; or, given
-    ``batches``, the same steps again from the saved start."""
+    two, epoch 1's first) and saves with the start and its score sheets for
+    the ranks; or, given ``batches``, the same steps again from the saved
+    start."""
     import pickle
 
     import torch
@@ -2322,7 +2366,8 @@ def ddp_one_process(work, data_root, batch_size, batches=None):
     cfg = ddp_config(work, data_root, batch_size)
     torch.manual_seed(SEED)
     trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
-    if batches is None:
+    drew = batches is None
+    if drew:
         batches = []
         for epoch in (0, 1):
             trainer.train_loader.set_epoch(epoch)
@@ -2338,7 +2383,11 @@ def ddp_one_process(work, data_root, batch_size, batches=None):
         start = torch.load(os.path.join(work, "ddp_start.pt"))
         for name, module in trainer.modules().items():
             module.load_state_dict(start[name])
-    masks = start_masks(trainer, batches)
+    sheets = start_sheets(trainer, batches)
+    masks = graph_masks(trainer, batches, sheets)
+    if drew:
+        with open(os.path.join(work, "ddp_sheets.pkl"), "wb") as f:
+            pickle.dump(sheets, f)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     steps, grads = ddp_steps(trainer, batches)
@@ -2349,7 +2398,7 @@ def ddp_one_process(work, data_root, batch_size, batches=None):
     gc.collect()
     torch.cuda.empty_cache()
     return cfg, dict(steps=steps, grads=grads, launches=launches, peak=peak,
-                     masks=masks, batches=batches)
+                     masks=masks, sheets=sheets, batches=batches)
 
 
 def run_ddp_training(work, data_root):
@@ -2408,13 +2457,28 @@ def run_ddp_training(work, data_root):
             out[r::len(parts)] = part
         return out
 
-    # the pseudo-labels from equal weights: bit for bit (an item's seed
-    # follows its place in the global batch)
+    # from equal weights: the score sheets within TOL_DDP_SHEETS (the same
+    # sums in f32, a GEMM of 8 N rows against one of 16 N rounding apart);
+    # the host graph stage on one process's sheets with a rank's seeds
+    # bit-equal to one process's pseudo-labels (an item's seed follows its
+    # place in the global batch); on the rank's own sheets, an IoU
+    sheet_gaps, start_ious = [], []
     for i, want in enumerate(one["masks"]):
-        got = interleave([r["masks"][i] for r in ranks])
-        expect(np.array_equal(got, want),
-               f"batch {i + 1}'s pseudo-labels from the start's weights: two ranks' "
-               f"bit-equal to one process's ({int(want.sum())} points flagged)")
+        for j, ref_sheet in enumerate(one["sheets"][i]):
+            got = interleave([r["sheets"][i][j] for r in ranks])
+            sheet_gaps.append(float(np.abs(got - ref_sheet).max())
+                              / max(float(np.abs(ref_sheet).max()), 1e-30))
+        expect(np.array_equal(interleave([r["seeded"][i] for r in ranks]), want),
+               f"batch {i + 1}: the graph stage on one process's score sheets with "
+               f"the ranks' seeds bit-equal to one process's pseudo-labels "
+               f"({int(want.sum())} points flagged)")
+        start_ious.append(flagged_iou(interleave([r["masks"][i] for r in ranks]), want))
+    print(f"  from the start's weights: score sheets, two ranks against one process, "
+          f"largest gap {max(sheet_gaps):.3e} of max |sheet|; pseudo-labelled points "
+          f"on the ranks' own sheets, IoU {start_ious}")
+    expect(max(sheet_gaps) <= TOL_DDP_SHEETS,
+           f"score sheets from the start's weights within {TOL_DDP_SHEETS} of one "
+           f"process's")
 
     # one process again on the same batches, from the same start: how far
     # a second run of the same steps lands (K4's backward sums its
@@ -2612,6 +2676,259 @@ def run_ddp_slice(work, data_root):
     return launches, ddp
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the SpUNet family (no kernel of its own: its gather-GEMM-scatter
+# conv is PyTorch's index_select, mm and index_add over the exact rulebook)
+
+SPUNET_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-spunet-v1m1-0-base.py")
+MINK_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-minkunet34c-0-base.py")
+CAC_SPUNET_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                                 "semseg-cac-v1m1-0-spunet-base.py")
+SPUNET_M3_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                                "semseg-spunet-v1m3-0-pdnorm-base.py")
+SPUNET_TRAIN_BATCHES = PTV2_TRAIN_BATCHES  # the shipped 12, its halves, 2 and 1
+TOL_SPUNET_LOGITS = 1e-4  # a fragment's logits, card against CPU, of max |logit|
+# the share of a training step in PyTorch's sort-based backward of advanced
+# indexing: the rulebook conv gathers with index_select (a scatter-add
+# backward), so none is expected
+MAX_INDEXING_BACKWARD_SHARE = 0.05
+
+
+def no_kernel_launched(launches, what):
+    counts = {k: (sum(v) if isinstance(v, tuple) else v) for k, v in launches.items()
+              if k != "gva_by_width"}
+    expect(not any(counts.values()), f"{what} launched no kernel of K1-K7: {counts}")
+
+
+def spunet_fragment_check(tester, fragment, batch):
+    """The largest fragment's voxel maps built on the card equal the CPU's
+    bit for bit (every level's neighbour table, the stem's, the parent maps
+    and masks), and its logits on the card are within
+    ``TOL_SPUNET_LOGITS`` of max |logit| of the port's CPU forward."""
+    import copy
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import voxel
+
+    backbone = tester.model.backbone
+    cpu_model = copy.deepcopy(tester.model).cpu()
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    with torch.inference_mode():
+        maps = backbone.index_maps(batch["grid_coord"], batch["mask"])
+        ref = cpu_model.backbone.index_maps(cpu_batch["grid_coord"], cpu_batch["mask"])
+    compared = [(f"{key}[{i}]", a, b) for key in ("nbr5", "nbr3", "grid", "mask", "c2p")
+                for i, (a, b) in enumerate(zip(*(
+                    (m[key] if isinstance(m[key], list) else [m[key]]) for m in (maps, ref))))]
+    differ = [name for name, a, b in compared if not torch.equal(a.cpu(), b)]
+    expect(not differ, f"{len(compared)} SpUNet voxel maps (the 5^3 and 3^3 tables, "
+                       f"grids, masks, parent maps) equal on the card and the CPU bit "
+                       f"for bit; differ: {differ}")
+    pairs = [int((t >= 0).sum()) for t in [maps["nbr5"], *maps["nbr3"]]]
+    print(f"  level sizes {[int(m.sum()) for m in maps['mask']]} voxels, rulebook pairs "
+          f"(5^3 stem, 3^3 levels) {pairs}")
+    voxel.capacity_dropped_points(reset=True)
+    with torch.inference_mode():
+        out = tester.forward(batch)["seg_logits"].cpu()
+        cpu = cpu_model(cpu_batch)["seg_logits"]
+    dropped = voxel.capacity_dropped_points(reset=True)
+    lmax = float(cpu.abs().max())
+    lerr = float((out - cpu).abs().max())
+    print(f"  fragment logits, card against CPU: err {lerr:.3e} (max |logit| "
+          f"{lmax:.3e}); dropped {dropped}")
+    expect(lerr <= TOL_SPUNET_LOGITS * lmax,
+           f"SpUNet logits on the card within {TOL_SPUNET_LOGITS} x max |logit| of the CPU's")
+    expect(dropped == 0, "no point dropped by the level capacities in the fragment")
+
+
+def spunet_step_profile(work, data_root, batch_size):
+    """One batch of the shipped S3DIS SpUNet config at ``batch_size``: the
+    train step's ms by CUDA events (three after a warm-up), its peak device
+    memory and, from ``torch.profiler``, the share of its device time in
+    PyTorch's ``indexing_backward_kernel``."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from _profile_torch import profile_call
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    cfg = default_config_parser(SPUNET_CONFIG, {
+        "data_root": data_root, "data.train.data_root": data_root,
+        "data.train.split": (f"Batch{batch_size}",), "save_path": os.path.join(
+            work, "exp_spunet_profile"), "device": DEVICE, "batch_size": batch_size,
+        "num_worker": 0, "evaluate": False, "hooks": [], "seed": SEED})
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
+    input_dict = next(iter(trainer.train_loader))
+    batch = trainer.device_batch(input_dict)
+    trainer._dispatch_train(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        trainer._dispatch_train(batch)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_call(lambda: trainer._dispatch_train(batch), step_ms, "SpUNet step",
+                        top=8)
+    share = prof["indexing_backward_ms"] / prof["device_busy_ms"]
+    print(f"  SpUNet train step, batch {list(batch['coord'].shape)} (valid points "
+          f"{input_dict['count'].tolist()}): {step_ms:.1f} ms (CUDA events), peak "
+          f"{peak:.2f} GiB; indexing_backward_kernel {prof['indexing_backward_ms']:.3f} "
+          f"ms, {share:.4f} of {prof['device_busy_ms']:.1f} ms busy")
+    expect(share <= MAX_INDEXING_BACKWARD_SHARE,
+           f"indexing backward share {share:.4f} <= {MAX_INDEXING_BACKWARD_SHARE}")
+    return dict(step_ms=step_ms, peak=peak, share=share,
+                busy_ms=prof["device_busy_ms"], shape=list(batch["coord"].shape))
+
+
+def spunet_scannet_batch(trainer, data_root, rooms=2):
+    """``CAC_POINTS`` voxels of each of two synthetic rooms at the ScanNet
+    configs' grid (2 cm; the first point of a voxel), 6 channels
+    (coordinates, colours), labels clipped to ScanNet's 20 classes."""
+    rng = np.random.RandomState(SEED + 3)
+    paths = sorted(glob.glob(os.path.join(data_root, TRAIN_AREAS[0], "*.npz")))[:rooms]
+    keys = ("coord", "grid_coord", "feat", "segment")
+    out = {k: [] for k in keys}
+    for path in paths:
+        room = np.load(path)
+        grid = np.floor((room["coord"] - room["coord"].min(0)) / 0.02).astype(np.int32)
+        first = np.unique(grid, axis=0, return_index=True)[1]
+        keep = first[rng.permutation(len(first))[:CAC_POINTS]]
+        coord = room["coord"][keep]
+        values = dict(coord=coord, grid_coord=grid[keep],
+                      feat=np.concatenate([coord - coord.mean(0),
+                                           room["color"][keep] / 255.0], 1),
+                      segment=np.minimum(room["semantic_gt"][keep], 19))
+        for k in keys:
+            pad = [(0, CAC_BUCKET - len(coord))] + [(0, 0)] * (values[k].ndim - 1)
+            out[k].append(np.pad(values[k], pad, constant_values=-1 if k == "segment" else 0))
+    batch = {k: np.stack(v) for k, v in out.items()}
+    batch["coord"] = batch["coord"].astype(np.float32)
+    batch["feat"] = batch["feat"].astype(np.float32)
+    batch["segment"] = batch["segment"].astype(np.int64)
+    batch["count"] = np.full(rooms, CAC_POINTS, np.int32)
+    return trainer.device_batch(batch)
+
+
+def one_step_and_eval(config, work, name, options, make_batch):
+    """One ``DefaultTrainer`` step and one eval forward of ``config`` at full
+    width on the batch ``make_batch(trainer)``: finite outputs, no kernel
+    of K1-K7 launched.  Returns (trainer, batch, step outputs, eval logits)."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    cfg = default_config_parser(config, dict({
+        "device": DEVICE, "batch_size": 2, "num_worker": 0, "evaluate": False,
+        "hooks": [], "seed": SEED, "save_path": os.path.join(work, f"exp_{name}")},
+        **options))
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
+    batch = make_batch(trainer)
+    reset_launches()
+    trainer._dispatch_train(batch)
+    out = {k: float(v) for k, v in trainer.comm_info["model_output_dict"].items()}
+    logits = trainer.eval_step(batch)["seg_logits"]
+    no_kernel_launched(read_launches(), f"{name}'s step and eval forward")
+    expect(all(np.isfinite(v) for v in out.values())
+           and bool(torch.isfinite(logits).all()), f"{name}: finite loss and logits")
+    print(f"  {name}: step on {list(batch['coord'].shape)}: {out}; eval logits "
+          f"{list(logits.shape)}")
+    return trainer, batch, out, logits
+
+
+def run_spunet_slice(work, data_root, n_val):
+    """Phase 13: (a) serving, (b) training, (c) the other entries."""
+    import re
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.models import build_model
+    from pointcloudpdf_tpu_torch.ops import voxel
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    print("  (a) tools/test_torch.py on the shipped S3DIS SpUNet config")
+    t0 = time.perf_counter()
+    serving = run_slice(work, SPUNET_CONFIG, "spunet", per_forward={},
+                        fragment_check=spunet_fragment_check)
+    walls = {"a": time.perf_counter() - t0}
+
+    print("  (b) tools/train_torch.py on it at full width, then the tester")
+    t0 = time.perf_counter()
+    split_root = two_batch_splits(work, data_root)
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, SPUNET_CONFIG, "spunet_train", split_root, 1,
+        [f"data.test.data_root={data_root}"], subsample=False,
+        sizes=SPUNET_TRAIN_BATCHES, areas=lambda b: (f"Batch{b}",))
+    dropped = voxel.capacity_dropped_points(reset=True)
+    no_kernel_launched(launches, "SpUNet training and its evaluator")
+    losses = train_log_losses(log, iters)["loss"]
+    print(f"  losses {losses}; dropped by the level capacities {dropped}")
+    for line in re.findall(r"Val result: [^\n]*", log):
+        print("  " + line)
+    expect(all(np.isfinite(losses)), "finite losses")
+    expect("Val result: mIoU/mAcc/allAcc" in log, "the evaluator ran")
+    expect(dropped == 0, f"{dropped} points dropped by the level capacities")
+    weight = os.path.join(save_path, "model", "model_last.pth")
+    test_save = os.path.join(work, "exp_spunet_train_test")
+    reset_launches()
+    log = run_tool("test_torch.py", [
+        "--config-file", SPUNET_CONFIG, "--device", DEVICE, "--options",
+        f"data_root={data_root}", f"weight={weight}", f"save_path={test_save}",
+        f"data.test.data_root={data_root}"])
+    no_kernel_launched(read_launches(), "the tester on the trained checkpoint")
+    pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
+    expect("Val result: mIoU/mAcc/allAcc" in log and pred.shape == (n_val,),
+           f"tools/test_torch.py tested the trainer's checkpoint: pred of {n_val} points")
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = spunet_step_profile(work, split_root, batch_size)
+    step.update(batch_size=batch_size, train_peak=peak, train_wall=wall)
+    walls["b"] = time.perf_counter() - t0
+
+    print("  (c) MinkUNet34C, CAC-v1m1 over SpUNet, SpUNet-v1m3")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = {"data_root": split_root, "data.train.data_root": split_root,
+             "data.train.split": ("Batch2",)}
+    one_step_and_eval(MINK_CONFIG, work, "MinkUNet34C", split,
+                      lambda t: t.device_batch(next(iter(t.train_loader))))
+    _, batch, out, _ = one_step_and_eval(
+        CAC_SPUNET_CONFIG, work, "CAC-v1m1 over SpUNet", {},
+        lambda t: spunet_scannet_batch(t, data_root))
+    expect(set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"},
+           "CAC: the model's loss and its four parts")
+    cfg = Config.fromfile(SPUNET_M3_CONFIG)
+    torch.manual_seed(SEED)
+    model = randomise_bn(build_model(dict(cfg.model)), torch.Generator().manual_seed(SEED))
+    model = model.to(DEVICE).eval()
+    reset_launches()
+    logits = {}
+    with torch.inference_mode():
+        for condition in cfg.model.backbone.conditions:
+            logits[condition] = model(dict(batch, condition_name=condition))["seg_logits"]
+    no_kernel_launched(read_launches(), "SpUNet-v1m3's forwards")
+    names = list(logits)
+    gaps = [float((logits[a] - logits[b]).abs().max()) for a, b in zip(names, names[1:])]
+    print(f"  SpUNet-v1m3: eval forwards under {names}, logits "
+          f"{list(logits[names[0]].shape)}; max gap between conditions {gaps}")
+    expect(all(bool(torch.isfinite(v).all()) for v in logits.values()) and min(gaps) > 0,
+           "SpUNet-v1m3: finite logits, a bank of its own a condition")
+    walls["c"] = time.perf_counter() - t0
+    print(f"  phase 13 walls (s): (a) {walls['a']:.1f}, (b) {walls['b']:.1f}, "
+          f"(c) {walls['c']:.1f}")
+    return serving, step
+
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -2693,6 +3010,12 @@ def main() -> int:
         print("[12] data-parallel engine: two gloo ranks on the card, NCCL at "
               "world 1, the tester on two ranks")
         ddp_train, ddp = phase("12", run_ddp_slice, work, data_root)
+        print("[13] the SpUNet family: serving and training the shipped S3DIS "
+              "SpUNet config, MinkUNet34C, CAC-v1m1 over SpUNet, SpUNet-v1m3")
+        spunet_serving, spunet = phase("13", run_spunet_slice, work, data_root, n_val)
+        print(f"  {card}: SpUNet train step {spunet['step_ms']:.1f} ms at batch "
+              f"{spunet['batch_size']} (shipped 12), peak {spunet['peak']:.2f} GiB, "
+              f"indexing backward share {spunet['share']:.4f}")
         print(f"  {card}: phase 12 wall {walls['12']:.1f} s; step ms world 1 "
               f"{[round(t, 1) for t in ddp['step_ms'][1]]}, world 2 "
               f"{[round(t, 1) for t in ddp['step_ms'][2]]} (global batch "

@@ -25,6 +25,7 @@ LayerNorm ``bias``          ``params/<p>/bias``
 ``relative_pos_*_table``    ``params/<p>/rel_*_table`` (2L, H, hd, 3), as is
 KPConv ``weight``           ``params/<p>/kp_weight`` (P, C_in, C_mid), as is
 KPConv ``K_points`` buffer  ``batch_stats/<p>/kp_points`` (P, 3)
+sparse conv ``weight``      ``params/<p>/kernel`` (K, C_in, C_out), as is
 ==========================  ======================================
 
 Module map (``{s}`` a stage digit, ``{st}`` enc or dec, torch block
@@ -105,6 +106,20 @@ its banks as ``(n_bank, C)`` leaves under the same name
 where ``<X>.norm`` is the PT-v2m2 name of that BatchNorm and ``<P>`` its
 JAX path.  A JAX tree's banks come out as ``bns.{i}`` (a norm that is not
 decoupled loads ``bns.0`` as ``bn``).
+
+SpUNet / MinkUNet (``{st}`` enc or dec, ``{b}`` a block, the same index on
+both sides; Pointcept ``spconv_unet_v1m1_base.py`` names)
+  backbone.conv_input.0 / .1                  conv_input / bn_input
+  backbone.down.{s}.0 / .1                    down{s} / down_bn{s}
+  backbone.up.{s}.0 / .1                      up{s} / up_bn{s}
+  backbone.{st}.{s}.block{b}.conv1|conv2|conv3   {st}{s}_block{b}/conv1|conv2|conv3
+  backbone.{st}.{s}.block{b}.bn1|bn2|bn3         {st}{s}_block{b}/bn1|bn2|bn3
+  backbone.{st}.{s}.block{b}.proj.0 / .1      {st}{s}_block{b}/proj / proj_bn
+  backbone.final                              final
+A sparse conv's weight is 3-D; a 2-D one under the same names (the 1x1
+``proj``, the bottleneck's ``conv1`` / ``conv3``, ``final``) is a Linear.
+SpUNet-v1m3's PD norms sit in the BatchNorms' own places (``<X>.bns.{i}``
+where SpUNet-v1m1 has ``<X>``), under the same JAX paths.
 
 Context-aware classifier (``CAC-v1m1``; the backbone under ``backbone.`` /
 ``backbone_module``, as a segmentor's)
@@ -215,6 +230,22 @@ _PTV2_RULES = [
     ("backbone.seg_head.3", _B + "seg_fc2", "linear"),
 ]
 
+# SpUNet / MinkUNet ("conv": a 3-D sparse-conv kernel as is, a 2-D Linear
+# transposed)
+_SPUNET_RULES = [
+    ("backbone.conv_input.0", _B + "conv_input", "conv"),
+    ("backbone.conv_input.1", _B + "bn_input", "bn"),
+    ("backbone.down.{s}.0", _B + "down{s}", "conv"),
+    ("backbone.down.{s}.1", _B + "down_bn{s}", "bn"),
+    ("backbone.up.{s}.0", _B + "up{s}", "conv"),
+    ("backbone.up.{s}.1", _B + "up_bn{s}", "bn"),
+    *[(f"backbone.{{st}}.{{s}}.block{{b}}.{tt}", _B + f"{{st}}{{s}}_block{{b}}/{jt}", k)
+      for tt, jt, k in (*[(f"{n}{i}", f"{n}{i}", kind) for i in (1, 2, 3)
+                          for n, kind in (("conv", "conv"), ("bn", "bn"))],
+                        ("proj.0", "proj", "conv"), ("proj.1", "proj_bn", "bn"))],
+    ("backbone.final", _B + "final", "conv"),
+]
+
 # CAC-v1m1's own modules; its prototypes are root leaves (_ROOT_LEAVES)
 _CAC_RULES = [
     ("proj.0", "proj1", "linear"), ("proj.2", "proj2", "linear"),
@@ -247,6 +278,7 @@ RULES: List[Tuple[str, str, str]] = [
     ("conf.1", "conf_bn", "bn"),
     ("conf.3", "conf2", "linear"),
     *_PTV2_RULES,
+    *_SPUNET_RULES,
     *_CAC_RULES,
     *_ST_RULES,
 ]
@@ -259,6 +291,7 @@ _GROUPS = {"st": r"(?P<st>enc|dec)", "s": r"(?P<s>\d)", "b": r"(?P<b>\d+)",
 # torch leaf -> (JAX collection, JAX leaf) per kind
 _LEAVES = {
     "linear": {"weight": ("params", "kernel"), "bias": ("params", "bias")},
+    "conv": {"weight": ("params", "kernel"), "bias": ("params", "bias")},
     "bn": {"weight": ("params", "scale"), "bias": ("params", "bias"),
            "running_mean": ("batch_stats", "mean"),
            "running_var": ("batch_stats", "var"),
@@ -287,6 +320,12 @@ _JAX_RX = [(_regex(j, "/"), t, k) for t, j, k in RULES]
 _JAX_RX_ST = ([(_regex(j, "/"), t, k) for t, j, k in _ST_RULES]
               + _JAX_RX[:-len(_ST_RULES)])
 _ST_ONLY = re.compile(r"(^|/)(stem_down|conf_fc1)/")
+
+
+def _is_linear(kind: str, arr) -> bool:
+    """Whether a weight of ``kind`` is a Linear's (transposed across the
+    bridge): a "conv" rule's 2-D weight is one, its 3-D one a sparse conv's."""
+    return kind == "linear" or (kind == "conv" and arr.ndim == 2)
 
 
 def _fill(template: str, groups: Dict[str, str], num_layers: int) -> str:
@@ -336,7 +375,7 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
                     continue
                 mod = _fill(torch_tmpl, m.groupdict(), num_layers)
                 arr = np.asarray(value)
-                if (kind == "linear" and leaf == "weight") or leaf == "modulation_weight":
+                if leaf == "modulation_weight" or (leaf == "weight" and _is_linear(kind, arr)):
                     arr = arr.T
                 if kind == "bn" and (arr.ndim == 2 or leaf.startswith("modulation")):
                     _put_pd(sd, mod, leaf, arr)
@@ -359,9 +398,9 @@ _PD_TORCH = re.compile(
 
 def _put_pd(sd, mod, leaf, arr):
     """A PD norm's stacked JAX leaf -> its banks' (or modulation's) torch
-    leaves; ``mod`` is the PT-v2m2 name of the BatchNorm (``<X>.norm``)."""
-    assert mod.endswith(".norm"), mod
-    base = mod[:-len(".norm")]
+    leaves; ``mod`` is the plain model's name of the BatchNorm: PT-v2m2's
+    ``<X>.norm`` (the PD norm replaces ``<X>``) or SpUNet's ``<X>``."""
+    base = mod[:-len(".norm")] if mod.endswith(".norm") else mod
     if leaf.startswith("modulation"):
         sd[f"{base}.modulation.1.{leaf[len('modulation_'):]}"] = torch.from_numpy(
             np.array(arr))
@@ -371,27 +410,33 @@ def _put_pd(sd, mod, leaf, arr):
         sd[f"{base}.bns.{i}.num_batches_tracked"] = torch.tensor(0)
 
 
-def _is_pd_norm(base: str) -> bool:
-    """Whether ``base`` is a module where PT-v2m2 has a BatchNorm under
-    ``.norm`` (so a ``bns`` / ``bn`` / ``modulation`` child is a PD norm's)."""
-    key = f"{base}.norm.running_mean"
-    return any(kind == "bn" and rx.fullmatch(key) for rx, _, kind in _TORCH_RX)
+def _pd_bn_name(base: str):
+    """The plain model's name of the BatchNorm whose place the PD norm
+    ``base`` takes (PT-v2m2's ``<base>.norm``, SpUNet's ``<base>``), or None
+    when ``base`` is no such place (its ``bns`` / ``bn`` / ``modulation``
+    child is then no PD norm's)."""
+    for name in (f"{base}.norm", base):
+        key = f"{name}.running_mean"
+        if any(kind == "bn" and rx.fullmatch(key) for rx, _, kind in _TORCH_RX):
+            return name
+    return None
 
 
 def _stack_pd(state_dict):
-    """A state_dict with each PD norm's leaves in the PT-v2m2 names of its
-    BatchNorm: the banks stacked (``<X>.norm.weight`` (n_bank, C)), the
-    modulation as ``<X>.norm.modulation_weight`` / ``_bias``."""
+    """A state_dict with each PD norm's leaves in the plain model's names
+    of its BatchNorm ``<N>``: the banks stacked (``<N>.weight`` (n_bank,
+    C)), the modulation as ``<N>.modulation_weight`` / ``_bias``."""
     out, banks = {}, {}
     for key, value in state_dict.items():
         m = _PD_TORCH.fullmatch(key)
-        if m is None or not _is_pd_norm(m.group("mod")):
+        name = m and _pd_bn_name(m.group("mod"))
+        if not name:
             out[key] = value
         elif ".modulation.1." in key:
-            out[f"{m.group('mod')}.norm.modulation_{m.group('leaf')}"] = value
+            out[f"{name}.modulation_{m.group('leaf')}"] = value
         elif m.group("leaf") != "num_batches_tracked":
             bank = int(m.group("bank") or 0)
-            banks.setdefault(f"{m.group('mod')}.norm.{m.group('leaf')}", {})[bank] = value
+            banks.setdefault(f"{name}.{m.group('leaf')}", {})[bank] = value
     for key, rows in banks.items():
         out[key] = torch.stack([rows[i] for i in sorted(rows)])
     return out
@@ -413,7 +458,7 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
                 continue
             coll, jleaf = _LEAVES[kind][m.group("leaf")]
             arr = value.detach().cpu().numpy()
-            if jleaf.endswith("kernel"):
+            if jleaf == "modulation_kernel" or (jleaf == "kernel" and _is_linear(kind, arr)):
                 arr = arr.T
             path = _fill(jax_tmpl, m.groupdict(), num_layers)
             jleaf = jleaf.replace("modulation_", "modulation/")

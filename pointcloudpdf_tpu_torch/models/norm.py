@@ -213,8 +213,9 @@ class PDLayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
-# Copied from pointcloudpdf_tpu/models/sparse_unet/spconv_unet.py
-# (``_bn_factory``): the port has no sparse_unet yet; keep in step.
+# The JAX package defines ``_bn_factory`` in
+# pointcloudpdf_tpu/models/sparse_unet/spconv_unet.py; the port keeps it
+# here, beside the norms, and the port's spconv_unet.py re-exports it.
 def _bn_factory(conditions=(), condition=None, decouple=True, adaptive=False,
                 affine=True, context_channels=256, zero_init=True):
     """Norm constructor: plain masked BN, or per-condition PDNorm when

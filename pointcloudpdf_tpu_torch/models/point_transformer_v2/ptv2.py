@@ -41,33 +41,10 @@ from torch.nn import functional as F
 
 from ...ops.geometry import divide_exact, gather_rows, knn
 from ...ops.gva import grouped_vector_attention, gva_plain
-from ...ops.voxel import unique_parents
+from ...ops.voxel import capacity_dropped_points, count_dropped, unique_parents
 from ..builder import MODELS
 from ..norm import MaskedBatchNorm, PDMaskedBatchNorm, _bn_factory
 from ..utils.structure import where_valid
-
-_DROPPED: Dict[torch.device, torch.Tensor] = {}
-
-
-def capacity_dropped_points(reset: bool = False) -> int:
-    """Valid points that ``GridPool`` dropped because their voxel did not
-    fit its capacity, summed over every call since the last reset (the JAX
-    package's ``capacity_dropped_points`` diagnostic); synchronises."""
-    total = sum(int(t) for t in _DROPPED.values())
-    if reset:
-        _DROPPED.clear()
-    return total
-
-
-def _count_dropped(n: torch.Tensor) -> None:
-    # a device-side sum: no synchronisation in the forward
-    with torch.inference_mode(False), torch.no_grad():
-        acc = _DROPPED.get(n.device)
-        if acc is None:
-            acc = _DROPPED[n.device] = torch.zeros((), dtype=torch.long,
-                                                   device=n.device)
-        acc += n.detach()
-
 
 class PointBatchNorm(nn.Module):
     """The reference's BatchNorm wrapper: the norm sits under ``.norm``."""
@@ -215,7 +192,7 @@ class GridPool(nn.Module):
                            min=0).to(torch.int64)
         _, p_mask, c2p = unique_parents(grid, mask, 1, cap)
         valid = c2p >= 0
-        _count_dropped((mask & ~valid).sum())
+        count_dropped((mask & ~valid).sum())
         slot = torch.clamp(c2p, min=0).long()
         c = y.shape[-1]
         yf = y.float()

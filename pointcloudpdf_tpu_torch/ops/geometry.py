@@ -312,7 +312,11 @@ def knn_tile_bounds(query, plan: KnnPlan, same=False):
 def knn_plain(query, ref, k, ref_mask):
     """Plain PyTorch version of K1, chunked over query tiles so no (M, N)
     matrix larger than 2**26 elements exists (a dense one at a
-    131072-point bucket would be 68 GB)."""
+    131072-point bucket would be 68 GB).  In f32 the k smallest (dist2,
+    index) pairs in lexicographic order, as the kernels take them: of two
+    refs at an exact tie the lower index comes first (``topk`` leaves the
+    order of ties open, and on CUDA a tie at the k-th place can swap a
+    neighbour)."""
     query = query.float()
     ref = ref.float()
     B, M, _ = query.shape
@@ -330,7 +334,16 @@ def knn_plain(query, ref, k, ref_mask):
             dz = r[None, :, 2] - q[:, None, 2]
             d = (dx * dx + dy * dy) + dz * dz
             d.masked_fill_(invalid[None, :], float("inf"))
-            vals, ids = torch.topk(d, k, dim=1, largest=False, sorted=True)
+            if d.dtype == torch.float32:
+                # an f32 distance's bits order as it does (d >= 0): one
+                # int64 key a (dist2, index) pair
+                key = (d.view(torch.int32).long() << 32) | torch.arange(
+                    N, dtype=torch.int64, device=d.device)
+                key = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+                ids = key & 0xFFFFFFFF
+                vals = (key >> 32).to(torch.int32).view(torch.float32)
+            else:  # a float64 pass (the tests' float64 gradients)
+                vals, ids = torch.topk(d, k, dim=1, largest=False, sorted=True)
             idx[b, q0:q0 + tile] = ids.to(torch.int32)
             dist2[b, q0:q0 + tile] = vals
     finite = torch.isfinite(dist2)

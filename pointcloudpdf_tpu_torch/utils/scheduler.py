@@ -9,8 +9,10 @@ it before every optimizer step.
 
 from __future__ import annotations
 
+import inspect
 import math
 
+from .logger import get_root_logger
 from .registry import Registry
 
 SCHEDULERS = Registry("schedulers")
@@ -119,10 +121,19 @@ class OneCycleLR:
 
 
 def build_scheduler(cfg, base_lr: float, total_steps: int):
-    """Build a step->lr schedule; cfg follows the reference's dicts."""
+    """Build a step->lr schedule; cfg follows the reference's dicts.  A key
+    the schedule does not take is dropped with a warning: a derived
+    config's schedule dict merges over its base's and keeps the base's keys
+    (the S3DIS SpUNet configs' ``PolyLR`` holds the PT-v1 base's
+    ``MultiStepLR`` ``milestones`` and ``gamma``)."""
     cfg = dict(cfg)
     cfg.setdefault("total_steps", total_steps)
     cfg.setdefault("base_lr", base_lr)
     if cfg.get("type") == "OneCycleLR":
         cfg.pop("base_lr", None)
+    accepted = inspect.signature(SCHEDULERS.get(cfg["type"])).parameters
+    ignored = sorted(k for k in cfg if k != "type" and k not in accepted)
+    if ignored:
+        get_root_logger().warning(f"schedule {cfg['type']} takes no {ignored}: ignored")
+        cfg = {k: v for k, v in cfg.items() if k not in ignored}
     return SCHEDULERS.build(cfg)

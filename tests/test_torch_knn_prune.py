@@ -219,8 +219,8 @@ def test_emulated_visit_rule_reproduces_plain(case, chunk=32):
     query, ref, mask, k, plan, pidx, pd2 = _plan_and_plain(case, chunk)
     idx, d2, visits = _emulate(query, plan, k, chunk, case[5])
     assert torch.equal(d2, pd2)
-    # knn_plain's order on exact ties is topk's; the kernel's is the lower
-    # index first: where the two differ the distance must be a tie
+    # both take the lower index first at an exact tie; where the two
+    # differ the distance must be a tie
     B = query.shape[0]
     exact = geometry.gather_rows(ref, idx)
     true_d2 = ((exact - query[:, :, None]) ** 2).sum(-1)

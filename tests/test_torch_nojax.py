@@ -4,7 +4,9 @@ package imports, the shipped open-set configs load, a Seg26 forward, a
 narrow Stratified Transformer forward (ST-v1m1 + ST recognizer) and a narrow
 PT-v2m2 forward run on the CPU, the open-set trainer takes one training step,
 the incremental trainer one distillation step and the default trainer one
-PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step, and ``launch`` runs a
+PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step, a narrow SpUNet-v1m1
+forward and step from the shipped S3DIS config and a CAC-v1m1 step over
+it, and ``launch`` runs a
 gloo group of one (the data-parallel engine's collectives).  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
@@ -199,6 +201,51 @@ cac._dispatch_train(cac.device_batch(cac_input))
 out = cac.comm_info["model_output_dict"]
 assert set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"}
 assert all(np.isfinite(float(v)) for v in out.values())
+
+# the shipped S3DIS SpUNet config at narrow widths: an eval forward, then one
+# DefaultTrainer step (its PolyLR dict keeps the base's MultiStepLR keys,
+# which the port drops); one step of CAC-v1m1 over SpUNet
+from pointcloudpdf_tpu_torch.ops import voxel
+
+sp_cfg = default_config_parser(ROOT + "/configs/s3dis/semseg-spunet-v1m1-0-base.py")
+assert sp_cfg.model.backbone.type == "SpUNet-v1m1"
+narrow = dict(base_channels=16, channels=(16, 16, 32, 32, 32, 16, 16, 16), layers=(1,) * 8)
+sp_cfg.model.backbone.update(narrow)
+sp_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                        "enable_amp": False, "evaluate": False, "hooks": [],
+                        "epoch": 2, "eval_epoch": 2})
+sp_cfg.data.train = dict(type="NoJaxScenes")
+sp = TRAINERS.build(dict(type="DefaultTrainer", cfg=sp_cfg))
+cells = np.stack(np.meshgrid(np.arange(24), np.arange(24), np.arange(2)), -1).reshape(-1, 3)
+grid = np.zeros((2, n, 3), np.int32)
+grid[0, :n] = cells[rng.permutation(len(cells))[:n]]
+grid[1, :400] = cells[rng.permutation(len(cells))[:400]]
+sp_input = dict(input_dict, grid_coord=grid)
+sp.model.eval()
+voxel.capacity_dropped_points(reset=True)
+with torch.inference_mode():
+    logits = sp.model(sp.device_batch(sp_input))["seg_logits"]
+assert logits.shape == (2, n, 13) and torch.isfinite(logits).all()
+assert (logits[1, 400:] == 0).all()
+before = sp.model.backbone.final.weight.detach().clone()
+sp._dispatch_train(sp.device_batch(sp_input))
+assert set(sp.comm_info["model_output_dict"]) == {"loss"}
+assert np.isfinite(float(sp.comm_info["model_output_dict"]["loss"]))
+assert not torch.equal(before, sp.model.backbone.final.weight)
+assert voxel.capacity_dropped_points(reset=True) == 0
+cac_sp_cfg = default_config_parser(ROOT + "/configs/scannet/semseg-cac-v1m1-0-spunet-base.py")
+cac_sp_cfg.model.backbone.update(narrow)
+cac_sp_cfg.model.backbone_out_channels = 16
+cac_sp_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                            "enable_amp": False, "evaluate": False, "hooks": [],
+                            "epoch": 2, "eval_epoch": 2})
+cac_sp_cfg.data.train = dict(type="NoJaxScenes")
+cac_sp = TRAINERS.build(dict(type="DefaultTrainer", cfg=cac_sp_cfg))
+cac_sp._dispatch_train(cac_sp.device_batch(dict(sp_input, segment=cac_input["segment"])))
+out = cac_sp.comm_info["model_output_dict"]
+assert set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"}
+assert all(np.isfinite(float(v)) for v in out.values())
+
 from pointcloudpdf_tpu_torch.engines.launch import launch
 from pointcloudpdf_tpu_torch.utils import comm
 seen = []

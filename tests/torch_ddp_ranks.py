@@ -10,6 +10,7 @@ them all in a rank and pickles what it got to ``<out>/rank<r>.pkl``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import pickle
@@ -387,30 +388,62 @@ def incr_step(rank, world):
     return steps
 
 
-def float64_gradient(rank, world):
-    """The open-set backbone's loss and gradient in float64: the
-    data-parallel sums then agree with one process to float64's rounding,
-    where a float32 gradient of this network moves by percents with the
-    order of its sums.  The port casts to f32 at its boundaries
-    (``.float()``); for this pass a float64 tensor goes through them as it
-    is."""
-    trainer = build_trainer(OPEN_CFG, seed=11)
-    model = trainer.model.double().train()
-    batch = {k: v.double() if v.is_floating_point() else v for k, v in
-             trainer.device_batch(shard(scene_batch(21), rank, world)).items()}
+@contextlib.contextmanager
+def float64_casts():
+    """The port casts to f32 at its boundaries (``.float()``); inside this
+    a float64 tensor goes through them as it is."""
     to_float = torch.Tensor.float
     torch.Tensor.float = lambda t, *args, **kwargs: (
         t if t.dtype == torch.float64 else to_float(t, *args, **kwargs))
     try:
-        loss = model.loss(model(batch)["seg_logits"], batch["segment"])
-        loss.backward()
+        yield
     finally:
         torch.Tensor.float = to_float
+
+
+def float64_gradient(rank, world):
+    """The open-set backbone's loss and gradient in float64: the
+    data-parallel sums then agree with one process to float64's rounding,
+    where a float32 gradient of this network moves by percents with the
+    order of its sums."""
+    trainer = build_trainer(OPEN_CFG, seed=11)
+    model = trainer.model.double().train()
+    batch = {k: v.double() if v.is_floating_point() else v for k, v in
+             trainer.device_batch(shard(scene_batch(21), rank, world)).items()}
+    with float64_casts():
+        loss = model.loss(model(batch)["seg_logits"], batch["segment"])
+        loss.backward()
     trainer.sum_gradients()
     tensors = dict(model.state_dict())
     tensors.update({n: p.grad for n, p in model.named_parameters()})
     return dict(loss=float(comm.sum_over_ranks(loss.detach())),
                 grads=to_numpy(trainer.to_jax_tree("model", tensors)["params"]))
+
+
+def open_seg_float64(rank, world):
+    """Two ``OpenSegTrainer`` steps through ``run_step`` in float64 at a
+    rate of 0.01: one in epoch 0, then one past ``start_epoch``, which
+    trains on the pseudo-labels of the score pass on the first update's
+    weights and the host graph stage.  Returns each step's running
+    statistics and the pseudo-labels it trained on."""
+    cfg = copy.deepcopy(OPEN_CFG)
+    cfg["optimizer"]["lr"] = 0.01
+    trainer = build_trainer(cfg, seed=11)
+    for module in trainer.modules().values():
+        module.double()
+    device_batch = trainer.device_batch
+    trainer.device_batch = lambda input_dict: {
+        k: v.double() if v.is_floating_point() else v
+        for k, v in device_batch(input_dict).items()}
+    steps = record_steps(trainer)
+    with float64_casts():
+        for epoch, seed in ((0, 21), (1, 22)):
+            trainer.epoch = epoch
+            trainer.comm_info["input_dict"] = shard(scene_batch(seed), rank, world)
+            trainer.run_step()
+        trainer._flush_pending()
+    return [dict(stats=s["state"]["batch_stats"], segment_pseudo=s["segment_pseudo"],
+                 out=s["out"]) for s in steps]
 
 
 def fail_on_rank_one():
@@ -445,7 +478,7 @@ CHECKS = dict(
     affines=(check_attention_affines,),
     **{f"loss.{name}": (check_loss, name) for name in (*LOSSES, "kl", "pdf")},
     open_seg=(open_seg_steps,), ptv2=(ptv2_step,), incr=(incr_step,),
-    float64=(float64_gradient,))
+    float64=(float64_gradient,), open_seg_float64=(open_seg_float64,))
 
 
 def run_ranks(out_dir):

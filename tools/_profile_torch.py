@@ -141,6 +141,9 @@ def profile_call(fn, host_ms, what, top=24):
             "idle_share_unprofiled": 1 - busy / host_ms,
             "by_kind_ms": kinds, "launches_by_kind": launches,
             "k1_prep_torch_kernels": prep, "k7_pack": k7_pack,
+            # PyTorch's sort-based backward of advanced indexing, over every kernel
+            "indexing_backward_ms": sum(device_us(ev) for ev in kernels
+                                        if "indexing_backward" in ev.key) / 1e3,
             "top_kernels": [{"ms": device_us(ev) / 1e3, "count": ev.count,
                              "name": ev.key[:120]} for ev in ranked]}
 

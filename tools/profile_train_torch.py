@@ -1,6 +1,6 @@
 """Where one training step of the PyTorch port goes, on one GPU.
 
-    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2]
+    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2|spunet]
         [--batch-size N] [--steps 3] [--out FILE]
 
 Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``) and a trainer
@@ -10,10 +10,11 @@ on the S3DIS Stratified Transformer config (ST-v1m1 + ST recognizer, AdamW,
 drop path 0.3), ``incr`` ``IncrSegTrainer`` on the incremental config (a
 seeded Seg50 teacher, Seg50 student with two more classes), ``ptv2``
 ``DefaultTrainer`` on the S3DIS PT-v2m2 config (AdamW, Mix3D 0.8, drop path
-0.3, level capacity 0.5); autocast as each config ships.  The batch size is
-``--batch-size``, else 16, and for ``ptv2`` the largest of
-``chip_smoke.PTV2_TRAIN_BATCHES`` (12 shipped, 6, 3, 2, 1) that fits the
-card's memory.  Prints, for one fixed batch:
+0.3, level capacity 0.5), ``spunet`` the same trainer on the S3DIS
+SpUNet-v1m1 config (SGD, PolyLR, Mix3D 0.8, level capacity 0.5); autocast
+as each config ships.  The batch size is ``--batch-size``, else 16, and for
+``ptv2`` and ``spunet`` the largest of ``chip_smoke.PTV2_TRAIN_BATCHES`` (12
+shipped, 6, 3, 2, 1) that fits the card's memory.  Prints, for one fixed batch:
 milliseconds per train step
 (CUDA events and host clock), the device's busy time and idle share and its
 split by kind of kernel (``torch.profiler``), every kernel's launches in a
@@ -21,10 +22,11 @@ step, peak device memory; for ``pt`` also the forward share of the
 batch-statistics pass (CUDA events around ``attention_train_affines``); for
 ``pt`` and ``st`` the host side of the pseudo-label pipeline (score pass,
 fetch, graph stage) beside the train step it is meant to hide behind; for
-``incr`` the teacher's forward alone; for ``ptv2`` the share of the
-step in PyTorch's sort-based backward of advanced indexing (the plain
-grouped attention's gathers) and one evaluator forward over the val room
-(K7 and K1 by the profiler).  ``--out`` also writes the numbers as JSON.
+``incr`` the teacher's forward alone; for ``ptv2`` and ``spunet`` the
+share of the step in PyTorch's sort-based backward of advanced indexing
+(the plain grouped attention's gathers; SpUNet's rulebook conv gathers with
+``index_select`` and should show none) and one evaluator forward over the
+val room (K7 and K1 by the profiler).  ``--out`` also writes the numbers as JSON.
 Needs a CUDA device.
 """
 
@@ -48,7 +50,8 @@ def main():
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2"), default="pt")
+    parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2", "spunet"),
+                        default="pt")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--out", default=None, help="write the numbers here as JSON")
     parser.add_argument("--steps", type=int, default=3)
@@ -68,9 +71,11 @@ def main():
         "pt": (chip_smoke.CONFIG, "OpenSegTrainer"),
         "st": (chip_smoke.ST_CONFIG, "OpenSegTrainer"),
         "incr": (chip_smoke.INCR_CONFIG, "IncrSegTrainer"),
-        "ptv2": (chip_smoke.PTV2_CONFIG, "DefaultTrainer")}[args.workload]
+        "ptv2": (chip_smoke.PTV2_CONFIG, "DefaultTrainer"),
+        "spunet": (chip_smoke.SPUNET_CONFIG, "DefaultTrainer")}[args.workload]
+    closed_set = args.workload in ("ptv2", "spunet")
     sizes = ([args.batch_size] if args.batch_size else
-             list(chip_smoke.PTV2_TRAIN_BATCHES) if args.workload == "ptv2" else [16])
+             list(chip_smoke.PTV2_TRAIN_BATCHES) if closed_set else [16])
     result = {"card": card, "workload": args.workload, "config": os.path.relpath(config, ROOT)}
     with tempfile.TemporaryDirectory() as work:
         data_root = os.path.join(work, "s3dis")
@@ -88,7 +93,7 @@ def main():
                 "data_root": data_root, "data.train.data_root": data_root,
                 "data.val.data_root": data_root, "save_path": os.path.join(work, "exp"),
                 "device": "cuda", "batch_size": batch_size, "num_worker": 0,
-                "evaluate": args.workload == "ptv2", "hooks": [], "seed": 0}
+                "evaluate": closed_set, "hooks": [], "seed": 0}
             if args.no_amp:
                 options["enable_amp"] = False
             cfg = default_config_parser(config, options)
@@ -164,12 +169,8 @@ def main():
         result["knn_calls_a_step"] = knn_calls(step)
         torch.cuda.synchronize()  # the timings below start on an idle device
 
-        if args.workload == "ptv2":
-            # the plain versions' gathers: PyTorch's sort-based backward of
-            # advanced indexing
-            top = {k["name"]: k["ms"] for k in result["top_kernels"]}
-            result["indexing_backward_ms"] = sum(
-                ms for name, ms in top.items() if "indexing_backward" in name)
+        if closed_set:
+            # PyTorch's sort-based backward of advanced indexing
             result["indexing_backward_share"] = (result["indexing_backward_ms"]
                                                  / result["device_busy_ms"])
             print(f"indexing backward: {result['indexing_backward_ms']:.1f} ms, "
