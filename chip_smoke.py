@@ -115,7 +115,27 @@ Phases, in order; any failure exits non-zero:
    ``MAX_INDEXING_BACKWARD_SHARE``); (c) one ``DefaultTrainer`` step and
    one eval forward each of MinkUNet34C and of CAC-v1m1 over SpUNet (2 x
    8,000 points, ScanNet's grid), and an eval forward of SpUNet-v1m3 under
-   each of its three conditions.
+   each of its three conditions;
+14. PT-v3m1 (no kernel of its own, so no K1-K7 launch anywhere in it,
+   asserted): (a) seeded random PT-v3m1 weights through the bridge,
+   ``tools/test_torch.py`` on the shipped S3DIS ``-rpe`` config over phase
+   4's room at four times its density with normals (``PTV3_ROOM``: the
+   config's half capacities assume a scanned surface at 2 cm), the largest
+   fragment's voxel maps and the four curve sorts of every level built on
+   the card equal to the CPU's bit for bit, its logits within
+   ``TOL_PTV3_LOGITS`` of the port's CPU forward, no point dropped by the
+   level capacities, one forward profiled; (b) ``tools/train_torch.py`` on
+   that config at full width over phase 5's rooms as ``PTV3_ROOM`` makes
+   them (the largest batch of 12, 6, 3, 2, 1 that fits; AdamW, OneCycleLR,
+   ``param_dicts``, autocast, Mix3D and drop path as shipped), one epoch of
+   two steps and the evaluator (its batches on the ``origin_coord`` /
+   ``origin_segment`` path), ``tools/test_torch.py`` on the checkpoint, one
+   batch's train step timed with its peak memory and its share in
+   ``indexing_backward_kernel`` (at most ``MAX_INDEXING_BACKWARD_SHARE``),
+   one step's loss under autocast against f32; (c) one ``DefaultTrainer``
+   step and one eval forward of the shipped ScanNet PT-v3m1 config
+   (patches of 1,024, no RPE) on 2 x 8,000 points at ScanNet's grid, with
+   its peak memory.
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -299,19 +319,22 @@ def clustered_cloud(rng, B, N, valid):
     return coord, mask
 
 
-def synthetic_room(rng, path):
+def synthetic_room(rng, path, normals=False, density=700):
     """A 5 x 4 x 3 m office in the S3DIS layout (coord, color, semantic_gt,
     instance_gt): ceiling, floor, walls, window, door and board patches,
-    and furniture boxes of the other classes; ~1.1 raw points per 4 cm
-    voxel of surface."""
+    and furniture boxes of the other classes; ``density`` raw points a
+    square metre of surface (700: ~1.1 a 4 cm voxel).  With ``normals`` a
+    ``normal`` array too (each plane's unit normal; it draws nothing from
+    ``rng``, so the room is the same)."""
     parts = []
 
-    def plane(label, origin, u, v, density=700):
+    def plane(label, origin, u, v):
         area = np.linalg.norm(u) * np.linalg.norm(v)
         n = int(area * density)
         a, b = rng.rand(n, 1), rng.rand(n, 1)
         pts = origin + a * u + b * v + rng.normal(scale=0.004, size=(n, 3))
-        parts.append((pts, np.full(n, label)))
+        normal = np.cross(u, v) / area
+        parts.append((pts, np.full(n, label), np.tile(normal, (n, 1))))
 
     def box(label, lo, hi):
         lo, hi = np.asarray(lo, float), np.asarray(hi, float)
@@ -339,12 +362,14 @@ def synthetic_room(rng, path):
     box(9, [0.06 * X, 0.65 * Y, 0], [0.4 * X, 0.88 * Y, 0.27 * Z])  # sofa
     box(10, [0.76 * X, 0.85 * Y, 0], [0.98 * X, 0.98 * Y, 0.67 * Z])
     box(12, [0.72 * X, 0.12 * Y, 0], [0.86 * X, 0.25 * Y, 0.2 * Z])
-    coord = np.concatenate([p for p, _ in parts]).astype(np.float32)
-    label = np.concatenate([lbl for _, lbl in parts]).astype(np.int64)
+    coord = np.concatenate([p for p, _, _ in parts]).astype(np.float32)
+    label = np.concatenate([lbl for _, lbl, _ in parts]).astype(np.int64)
     color = (rng.rand(len(coord), 3) * 255).astype(np.float32)
     color[:, 0] = np.clip(color[:, 0] * 0.5 + label * 10, 0, 255)
+    extra = ({"normal": np.concatenate([nrm for _, _, nrm in parts]).astype(np.float32)}
+             if normals else {})
     np.savez(path, coord=coord, color=color, semantic_gt=label,
-             instance_gt=np.zeros_like(label))
+             instance_gt=np.zeros_like(label), **extra)
     return len(coord)
 
 
@@ -1328,7 +1353,7 @@ def run_tool(tool, argv):
 
 
 def run_slice(work, config, name, per_forward=None, gva_by_width=None,
-              fragment_check=None):
+              fragment_check=None, room=None):
     """A serving slice end to end on ``config``: the tester over the
     synthetic room with the launch counts read, then one fragment again on
     the plain versions.  ``per_forward`` gives the launches of one forward
@@ -1338,7 +1363,7 @@ def run_slice(work, config, name, per_forward=None, gva_by_width=None,
     (``OpenSegTester``) also writes and checks the scores and the AUPR
     line; a closed-set one (``SemSegTester``) has neither.
     ``fragment_check(tester, fragment, batch)`` checks more of the largest
-    fragment."""
+    fragment.  ``room``: ``synthetic_room``'s options (normals, density)."""
     import torch
 
     from pointcloudpdf_tpu_torch.models import build_model
@@ -1350,7 +1375,8 @@ def run_slice(work, config, name, per_forward=None, gva_by_width=None,
     data_root = os.path.join(work, f"s3dis_{name}")
     os.makedirs(os.path.join(data_root, "Area_5"))
     n_raw = synthetic_room(np.random.RandomState(SEED),
-                           os.path.join(data_root, "Area_5", "office_1.npz"))
+                           os.path.join(data_root, "Area_5", "office_1.npz"),
+                           **(room or {}))
     print(f"  synthetic room: {n_raw} raw points")
 
     cfg = Config.fromfile(config)
@@ -1474,17 +1500,18 @@ PTV2_PER_FORWARD = {"gva": 2 + (2 + 6 + 2) + (1 + 1 + 1), "knn": 4}
 PTV2_K7_BY_WIDTH = {48: 2 + 1, 96: 2 + 1, 192: 6 + 1, 384: 2}
 
 
-def make_train_rooms(work):
+def make_train_rooms(work, name="s3dis_train", **room):
     """Synthetic rooms over the five train areas and one val room (Area_5)
-    in the S3DIS layout; returns (data_root, val room's raw points)."""
-    data_root = os.path.join(work, "s3dis_train")
+    in the S3DIS layout, under ``work/name`` (``room``: ``synthetic_room``'s
+    options); returns (data_root, val room's raw points)."""
+    data_root = os.path.join(work, name)
     for area in (*TRAIN_AREAS, "Area_5"):
         os.makedirs(os.path.join(data_root, area))
     rng = np.random.RandomState(SEED + 1)
     for i in range(TRAIN_ROOMS):
         synthetic_room(rng, os.path.join(
-            data_root, TRAIN_AREAS[i % len(TRAIN_AREAS)], f"office_{i}.npz"))
-    n_val = synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"))
+            data_root, TRAIN_AREAS[i % len(TRAIN_AREAS)], f"office_{i}.npz"), **room)
+    n_val = synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"), **room)
     print(f"  {TRAIN_ROOMS} train rooms over {len(TRAIN_AREAS)} areas, 1 val room "
           f"of {n_val} raw points")
     return data_root, n_val
@@ -1949,11 +1976,11 @@ CAC_K7_BY_WIDTH = {48: 1 + 1, 96: 2 + 1, 192: 2 + 1, 384: 6 + 1, 512: 2}
 CAC_POINTS, CAC_BUCKET = 8000, 8192
 
 
-def two_batch_splits(work, data_root):
-    """A data root beside ``data_root`` with one train split a batch size,
-    ``Batch{b}``, of 2 b of its rooms (links), and its val area: an epoch
-    of two iterations at any batch size.  Returns the root."""
-    root = os.path.join(work, "s3dis_two_batches")
+def two_batch_splits(work, data_root, name="s3dis_two_batches"):
+    """A data root ``work/name`` with one train split a batch size,
+    ``Batch{b}``, of 2 b of ``data_root``'s rooms (links), and its val area:
+    an epoch of two iterations at any batch size.  Returns the root."""
+    root = os.path.join(work, name)
     if os.path.isdir(root):
         return root
     os.makedirs(root)
@@ -2700,11 +2727,14 @@ def no_kernel_launched(launches, what):
     expect(not any(counts.values()), f"{what} launched no kernel of K1-K7: {counts}")
 
 
-def spunet_fragment_check(tester, fragment, batch):
+def check_fragment_maps(tester, fragment, batch, name="SpUNet",
+                          keys=("nbr5", "nbr3", "grid", "mask", "c2p"),
+                          tol=TOL_SPUNET_LOGITS):
     """The largest fragment's voxel maps built on the card equal the CPU's
-    bit for bit (every level's neighbour table, the stem's, the parent maps
-    and masks), and its logits on the card are within
-    ``TOL_SPUNET_LOGITS`` of max |logit| of the port's CPU forward."""
+    bit for bit (``keys`` of the backbone's ``index_maps``: every level's
+    neighbour table, the stem's, the parent maps and masks; PT-v3's curve
+    sorts), and its logits on the card are within ``tol`` of max |logit| of
+    the port's CPU forward."""
     import copy
 
     import torch
@@ -2717,13 +2747,12 @@ def spunet_fragment_check(tester, fragment, batch):
     with torch.inference_mode():
         maps = backbone.index_maps(batch["grid_coord"], batch["mask"])
         ref = cpu_model.backbone.index_maps(cpu_batch["grid_coord"], cpu_batch["mask"])
-    compared = [(f"{key}[{i}]", a, b) for key in ("nbr5", "nbr3", "grid", "mask", "c2p")
+    compared = [(f"{key}[{i}]", a, b) for key in keys
                 for i, (a, b) in enumerate(zip(*(
                     (m[key] if isinstance(m[key], list) else [m[key]]) for m in (maps, ref))))]
-    differ = [name for name, a, b in compared if not torch.equal(a.cpu(), b)]
-    expect(not differ, f"{len(compared)} SpUNet voxel maps (the 5^3 and 3^3 tables, "
-                       f"grids, masks, parent maps) equal on the card and the CPU bit "
-                       f"for bit; differ: {differ}")
+    differ = [label for label, a, b in compared if not torch.equal(a.cpu(), b)]
+    expect(not differ, f"{len(compared)} {name} voxel maps ({', '.join(keys)}) equal on "
+                       f"the card and the CPU bit for bit; differ: {differ}")
     pairs = [int((t >= 0).sum()) for t in [maps["nbr5"], *maps["nbr3"]]]
     print(f"  level sizes {[int(m.sum()) for m in maps['mask']]} voxels, rulebook pairs "
           f"(5^3 stem, 3^3 levels) {pairs}")
@@ -2736,16 +2765,16 @@ def spunet_fragment_check(tester, fragment, batch):
     lerr = float((out - cpu).abs().max())
     print(f"  fragment logits, card against CPU: err {lerr:.3e} (max |logit| "
           f"{lmax:.3e}); dropped {dropped}")
-    expect(lerr <= TOL_SPUNET_LOGITS * lmax,
-           f"SpUNet logits on the card within {TOL_SPUNET_LOGITS} x max |logit| of the CPU's")
+    expect(lerr <= tol * lmax,
+           f"{name} logits on the card within {tol} x max |logit| of the CPU's")
     expect(dropped == 0, "no point dropped by the level capacities in the fragment")
 
 
-def spunet_step_profile(work, data_root, batch_size):
-    """One batch of the shipped S3DIS SpUNet config at ``batch_size``: the
-    train step's ms by CUDA events (three after a warm-up), its peak device
-    memory and, from ``torch.profiler``, the share of its device time in
-    PyTorch's ``indexing_backward_kernel``."""
+def profile_train_step(work, data_root, batch_size, config=SPUNET_CONFIG, name="SpUNet"):
+    """One batch of ``config`` (the shipped S3DIS SpUNet config) at
+    ``batch_size``: the train step's ms by CUDA events (three after a
+    warm-up), its peak device memory and, from ``torch.profiler``, the share
+    of its device time in PyTorch's ``indexing_backward_kernel``."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -2754,10 +2783,10 @@ def spunet_step_profile(work, data_root, batch_size):
     from pointcloudpdf_tpu_torch.engines import default_config_parser
     from pointcloudpdf_tpu_torch.engines.train import TRAINERS
 
-    cfg = default_config_parser(SPUNET_CONFIG, {
+    cfg = default_config_parser(config, {
         "data_root": data_root, "data.train.data_root": data_root,
         "data.train.split": (f"Batch{batch_size}",), "save_path": os.path.join(
-            work, "exp_spunet_profile"), "device": DEVICE, "batch_size": batch_size,
+            work, f"exp_{name}_profile"), "device": DEVICE, "batch_size": batch_size,
         "num_worker": 0, "evaluate": False, "hooks": [], "seed": SEED})
     torch.manual_seed(SEED)
     trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
@@ -2774,10 +2803,10 @@ def spunet_step_profile(work, data_root, batch_size):
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / 3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = profile_call(lambda: trainer._dispatch_train(batch), step_ms, "SpUNet step",
+    prof = profile_call(lambda: trainer._dispatch_train(batch), step_ms, f"{name} step",
                         top=8)
     share = prof["indexing_backward_ms"] / prof["device_busy_ms"]
-    print(f"  SpUNet train step, batch {list(batch['coord'].shape)} (valid points "
+    print(f"  {name} train step, batch {list(batch['coord'].shape)} (valid points "
           f"{input_dict['count'].tolist()}): {step_ms:.1f} ms (CUDA events), peak "
           f"{peak:.2f} GiB; indexing_backward_kernel {prof['indexing_backward_ms']:.3f} "
           f"ms, {share:.4f} of {prof['device_busy_ms']:.1f} ms busy")
@@ -2787,7 +2816,7 @@ def spunet_step_profile(work, data_root, batch_size):
                 busy_ms=prof["device_busy_ms"], shape=list(batch["coord"].shape))
 
 
-def spunet_scannet_batch(trainer, data_root, rooms=2):
+def scannet_grid_batch(trainer, data_root, rooms=2):
     """``CAC_POINTS`` voxels of each of two synthetic rooms at the ScanNet
     configs' grid (2 cm; the first point of a voxel), 6 channels
     (coordinates, colours), labels clipped to ScanNet's 20 classes."""
@@ -2857,7 +2886,7 @@ def run_spunet_slice(work, data_root, n_val):
     print("  (a) tools/test_torch.py on the shipped S3DIS SpUNet config")
     t0 = time.perf_counter()
     serving = run_slice(work, SPUNET_CONFIG, "spunet", per_forward={},
-                        fragment_check=spunet_fragment_check)
+                        fragment_check=check_fragment_maps)
     walls = {"a": time.perf_counter() - t0}
 
     print("  (b) tools/train_torch.py on it at full width, then the tester")
@@ -2889,7 +2918,7 @@ def run_spunet_slice(work, data_root, n_val):
            f"tools/test_torch.py tested the trainer's checkpoint: pred of {n_val} points")
     gc.collect()
     torch.cuda.empty_cache()
-    step = spunet_step_profile(work, split_root, batch_size)
+    step = profile_train_step(work, split_root, batch_size)
     step.update(batch_size=batch_size, train_peak=peak, train_wall=wall)
     walls["b"] = time.perf_counter() - t0
 
@@ -2903,7 +2932,7 @@ def run_spunet_slice(work, data_root, n_val):
                       lambda t: t.device_batch(next(iter(t.train_loader))))
     _, batch, out, _ = one_step_and_eval(
         CAC_SPUNET_CONFIG, work, "CAC-v1m1 over SpUNet", {},
-        lambda t: spunet_scannet_batch(t, data_root))
+        lambda t: scannet_grid_batch(t, data_root))
     expect(set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"},
            "CAC: the model's loss and its four parts")
     cfg = Config.fromfile(SPUNET_M3_CONFIG)
@@ -2927,6 +2956,158 @@ def run_spunet_slice(work, data_root, n_val):
           f"(c) {walls['c']:.1f}")
     return serving, step
 
+
+
+# ---------------------------------------------------------------------------
+# phase 14: PT-v3m1 (no kernel of its own: its patch attention is plain
+# PyTorch, as the JAX package's is plain jnp; the xCPE convs are phase 13's
+# rulebook conv)
+
+PTV3_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v3m1-0-rpe.py")
+PTV3_SCANNET_CONFIG = os.path.join(ROOT, "configs", "scannet", "semseg-pt-v3m1-0-base.py")
+PTV3_TRAIN_BATCHES = PTV2_TRAIN_BATCHES  # the shipped 12, its halves, 2 and 1
+# a fragment's logits, card against CPU, of max |logit|: f32 on both (TF32
+# off), 22 blocks of softmax attention summed in other orders
+TOL_PTV3_LOGITS = 1e-4
+PTV3_MAP_KEYS = ("nbr5", "nbr3", "grid", "mask", "c2p", "order", "inverse")
+# phase 14's rooms: phases 4 and 5's layouts with normals, at four times
+# their density.  The config pools 2 cm voxels into half capacities, which
+# holds on a scanned surface (a 4 cm parent holds several 2 cm children);
+# at 700 points a square metre most 2 cm voxels are alone in their parent
+# and the capacities drop points (154,299 over the 14 fragments of phase
+# 4's room, counted on the CPU at a reduced width).  A real S3DIS room holds
+# ~10^4 points a square metre.
+PTV3_ROOM = dict(normals=True, density=2800)
+
+
+def ptv3_fragment_check(tester, fragment, batch):
+    """PT-v3's largest fragment: its voxel maps and the four curve sorts of
+    every level on the card equal the CPU's bit for bit, its logits within
+    ``TOL_PTV3_LOGITS`` of the CPU forward's, nothing dropped; then one
+    forward under ``torch.profiler`` (the device's busy time and idle
+    share)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from _profile_torch import profile_call
+
+    check_fragment_maps(tester, fragment, batch, name="PT-v3", keys=PTV3_MAP_KEYS,
+                          tol=TOL_PTV3_LOGITS)
+
+    def forward():
+        with torch.inference_mode():
+            tester.forward(batch)
+
+    ms = cuda_ms(forward, 3)
+    prof = profile_call(forward, ms, "PT-v3 fragment forward", top=8)
+    ptv3_fragment_check.result = dict(ms=ms, points=int(batch["mask"].sum()),
+                                      bucket=int(batch["mask"].shape[1]),
+                                      busy_ms=prof["device_busy_ms"],
+                                      idle=prof["idle_share_unprofiled"])
+
+
+def run_ptv3_slice(work, data_root):
+    """Phase 14: (a) serving the shipped S3DIS PT-v3m1 -rpe config, (b)
+    training it at full width, (c) a step and eval forward of the ScanNet
+    config."""
+    import re
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.ops import voxel
+    from pointcloudpdf_tpu_torch.utils.checkpoint import load_checkpoint
+
+    print("  (a) tools/test_torch.py on the shipped S3DIS PT-v3m1 -rpe config")
+    t0 = time.perf_counter()
+    serving = run_slice(work, PTV3_CONFIG, "ptv3", per_forward={},
+                        fragment_check=ptv3_fragment_check, room=PTV3_ROOM)
+    serving_fragment = ptv3_fragment_check.result
+    walls = {"a": time.perf_counter() - t0}
+
+    print("  (b) tools/train_torch.py on it at full width (phase 5's layouts, "
+          f"{PTV3_ROOM}), then the tester")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    normals_root, n_val = make_train_rooms(work, "s3dis_train_ptv3", **PTV3_ROOM)
+    split_root = two_batch_splits(work, normals_root, "s3dis_two_batches_normals")
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, PTV3_CONFIG, "ptv3_train", split_root, 1,
+        [f"data.test.data_root={normals_root}"], subsample=False,
+        sizes=PTV3_TRAIN_BATCHES, areas=lambda b: (f"Batch{b}",))
+    dropped = voxel.capacity_dropped_points(reset=True)
+    no_kernel_launched(launches, "PT-v3 training and its evaluator")
+    losses = train_log_losses(log, iters)["loss"]
+    print(f"  losses {losses}; dropped by the level capacities {dropped}")
+    for line in re.findall(r"Val result: [^\n]*", log):
+        print("  " + line)
+    expect(all(np.isfinite(losses)), "finite losses")
+    expect("Val result: mIoU/mAcc/allAcc" in log, "the evaluator ran")
+    expect(dropped == 0, f"{dropped} points dropped by the level capacities")
+    weight = os.path.join(save_path, "model", "model_last.pth")
+    test_save = os.path.join(work, "exp_ptv3_train_test")
+    reset_launches()
+    log = run_tool("test_torch.py", [
+        "--config-file", PTV3_CONFIG, "--device", DEVICE, "--options",
+        f"data_root={normals_root}", f"weight={weight}", f"save_path={test_save}",
+        f"data.test.data_root={normals_root}"])
+    no_kernel_launched(read_launches(), "the tester on the trained checkpoint")
+    pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
+    expect("Val result: mIoU/mAcc/allAcc" in log and pred.shape == (n_val,),
+           f"tools/test_torch.py tested the trainer's checkpoint: pred of {n_val} points")
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = profile_train_step(work, split_root, batch_size, PTV3_CONFIG, "PT-v3")
+    step.update(batch_size=batch_size, train_peak=peak, train_wall=wall)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the evaluator's batches carry the config's origin_coord / origin_segment;
+    # one step's loss under autocast against f32
+    cfg = default_config_parser(PTV3_CONFIG, {
+        "data_root": split_root, "data.train.data_root": split_root,
+        "data.train.split": ("Batch1",), "data.val.data_root": split_root,
+        "save_path": os.path.join(work, "exp_ptv3_check"), "device": DEVICE,
+        "batch_size": 1, "num_worker": 0, "hooks": [], "seed": SEED, "mix_prob": 0.0})
+    trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
+    trainer.load_state_dict(load_checkpoint(weight)["state"])
+    val = next(iter(trainer.val_loader))
+    expect("origin_coord" in val and "origin_segment" in val,
+           "the evaluator's batches hold origin_coord and origin_segment")
+    batch = trainer.device_batch(next(iter(trainer.train_loader)))
+    step_losses = {}
+    for amp in (False, True):
+        trainer.cfg.enable_amp = amp
+        trainer._train_mode(True)
+        trainer.generator.manual_seed(SEED)
+        with torch.no_grad(), trainer._amp():
+            loss, _ = trainer.compute_loss(trainer.forward_train(trainer.model, batch), batch)
+        step_losses[amp] = float(loss)
+    f32, amp = step_losses[False], step_losses[True]
+    print(f"  one step's loss on {list(batch['coord'].shape)}: f32 {f32:.6f}, bfloat16 "
+          f"autocast {amp:.6f}")
+    expect(np.isfinite(amp) and abs(amp - f32) <= TOL_AMP_LOGITS * abs(f32),
+           f"the autocast loss finite and within {TOL_AMP_LOGITS} of the f32 loss")
+    del trainer, batch, val
+    walls["b"] = time.perf_counter() - t0
+
+    print("  (c) the shipped ScanNet PT-v3m1 config: a step and an eval forward")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    one_step_and_eval(PTV3_SCANNET_CONFIG, work, "PT-v3m1 ScanNet", {},
+                      lambda t: scannet_grid_batch(t, data_root))
+    scannet_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  PT-v3m1 ScanNet: peak {scannet_peak:.2f} GiB (patches of 1,024, no RPE)")
+    walls["c"] = time.perf_counter() - t0
+    print(f"  phase 14 walls (s): (a) {walls['a']:.1f}, (b) {walls['b']:.1f}, "
+          f"(c) {walls['c']:.1f}")
+    step.update(serving=serving_fragment, scannet_peak=scannet_peak, amp_loss=amp,
+                f32_loss=f32)
+    return serving, step
 
 
 def main() -> int:
@@ -3013,6 +3194,16 @@ def main() -> int:
         print("[13] the SpUNet family: serving and training the shipped S3DIS "
               "SpUNet config, MinkUNet34C, CAC-v1m1 over SpUNet, SpUNet-v1m3")
         spunet_serving, spunet = phase("13", run_spunet_slice, work, data_root, n_val)
+        print("[14] PT-v3m1: serving and training the shipped S3DIS -rpe config, a "
+              "step of the ScanNet config")
+        ptv3_serving, ptv3 = phase("14", run_ptv3_slice, work, data_root)
+        served = ptv3["serving"]
+        print(f"  {card}: PT-v3 serving {served['ms']:.2f} ms a fragment of "
+              f"{served['points']} points (bucket {served['bucket']}), busy "
+              f"{served['busy_ms']:.2f} ms, idle {served['idle']:.3f}; train step "
+              f"{ptv3['step_ms']:.1f} ms at batch {ptv3['batch_size']} (shipped 12), "
+              f"{ptv3['shape']}, peak {ptv3['peak']:.2f} GiB, indexing backward share "
+              f"{ptv3['share']:.4f}; ScanNet step peak {ptv3['scannet_peak']:.2f} GiB")
         print(f"  {card}: SpUNet train step {spunet['step_ms']:.1f} ms at batch "
               f"{spunet['batch_size']} (shipped 12), peak {spunet['peak']:.2f} GiB, "
               f"indexing backward share {spunet['share']:.4f}")

@@ -26,6 +26,7 @@ LayerNorm ``bias``          ``params/<p>/bias``
 KPConv ``weight``           ``params/<p>/kp_weight`` (P, C_in, C_mid), as is
 KPConv ``K_points`` buffer  ``batch_stats/<p>/kp_points`` (P, 3)
 sparse conv ``weight``      ``params/<p>/kernel`` (K, C_in, C_out), as is
+RPE ``rpe_table``           ``params/<p>/rpe_table`` (3 rpe_num, H), as is
 ==========================  ======================================
 
 Module map (``{s}`` a stage digit, ``{st}`` enc or dec, torch block
@@ -121,6 +122,27 @@ A sparse conv's weight is 3-D; a 2-D one under the same names (the 1x1
 SpUNet-v1m3's PD norms sit in the BatchNorms' own places (``<X>.bns.{i}``
 where SpUNet-v1m1 has ``<X>``), under the same JAX paths.
 
+Point Transformer V3 (``PT-v3m1`` under ``DefaultSegmentorV2``; ``{st}``
+enc or dec, ``{b}`` a block, the same indices on both sides; Pointcept
+``point_transformer_v3m1_base.py`` names)
+  backbone.embedding.stem.conv / .norm        embedding / embedding_bn
+  backbone.{st}.{st}{s}.block{b}.             {st}{s}_block{b}/
+  backbone.enc.enc{s}.down.proj / .norm.0     pool{s}_proj / pool{s}_bn
+  backbone.dec.dec{s}.up.proj.0 / .1          unpool{s}_proj / unpool{s}_bn
+  backbone.dec.dec{s}.up.proj_skip.0 / .1     unpool{s}_skip / unpool{s}_skip_bn
+  seg_head                                    seg_head (the segmentor's)
+  in a block:
+  cpe.0 / cpe.1 / cpe.2                       cpe_conv (with bias) / cpe_fc / cpe_norm
+  norm1.0 / norm2.0                           norm1 / norm2
+  attn.qkv / attn.proj / attn.rpe.rpe_table   attn/qkv / attn/proj / attn/rpe/rpe_table
+  mlp.0.fc1 / mlp.0.fc2                       mlp_fc1 / mlp_fc2
+A plain LayerNorm ``<X>`` is the JAX ``<P>/ln``; with ``pdnorm_ln`` it is a
+``PDLayerNorm``, whose banks ``<X>.norm.{i}.weight / bias`` (``<X>.norm``
+when not decoupled) are rows of the JAX ``<P>/scale | bias`` (n_bank, C) and
+whose ``<X>.modulation.1`` is ``<P>/modulation``.  ``pdnorm_bn``'s banks sit
+in the BatchNorms' places, as SpUNet-v1m3's do.  The RPE table (3 rpe_num,
+H) goes as is.
+
 Context-aware classifier (``CAC-v1m1``; the backbone under ``backbone.`` /
 ``backbone_module``, as a segmentor's)
   seg_head.weight / .bias                     proto (as is) / seg_bias
@@ -198,35 +220,35 @@ _ST_RULES = [
 # PT-v2: a block's tail under its path, both sides; the attention's three
 # MLPs as (reference name, JAX prefix)
 _PTV2_BLOCK_TAILS = (
-    ("fc1", "fc1", "linear"), ("norm1.norm", "norm1", "bn"),
+    ("fc1", "fc1", "linear"), ("norm1.norm", "norm1", "pointbn"),
     *[t for n in ("q", "k") for t in (
         (f"attn.linear_{n}.0", f"attn/linear_{n}", "linear"),
         (f"attn.{n}_fc1", f"attn/{n}_fc1", "linear"),
-        (f"attn.linear_{n}.1.norm", f"attn/{n}_bn", "bn"))],
+        (f"attn.linear_{n}.1.norm", f"attn/{n}_bn", "pointbn"))],
     ("attn.linear_v", "attn/linear_v", "linear"),
     *[t for ref, jp in (("linear_p_bias", "peb"), ("linear_p_multiplier", "pem"),
                         ("weight_encoding", "we")) for t in (
         (f"attn.{ref}.0", f"attn/{jp}_fc1", "linear"),
-        (f"attn.{ref}.1.norm", f"attn/{jp}_bn", "bn"),
+        (f"attn.{ref}.1.norm", f"attn/{jp}_bn", "pointbn"),
         (f"attn.{ref}.3", f"attn/{jp}_fc2", "linear"))],
-    ("norm2.norm", "norm2", "bn"), ("fc3", "fc3", "linear"),
-    ("norm3.norm", "norm3", "bn"),
+    ("norm2.norm", "norm2", "pointbn"), ("fc3", "fc3", "linear"),
+    ("norm3.norm", "norm3", "pointbn"),
 )
 _PTV2_RULES = [
     ("backbone.patch_embed.proj.0", _B + "patch_proj", "linear"),
-    ("backbone.patch_embed.proj.1.norm", _B + "patch_bn", "bn"),
+    ("backbone.patch_embed.proj.1.norm", _B + "patch_bn", "pointbn"),
     *[(f"backbone.patch_embed.blocks.blocks.{{b}}.{tt}",
        _B + f"patch_blocks/block{{b}}/{jt}", k) for tt, jt, k in _PTV2_BLOCK_TAILS],
     *[(f"backbone.{{st}}_stages.{{s}}.blocks.blocks.{{b}}.{tt}",
        _B + f"{{st}}{{s}}_blocks/block{{b}}/{jt}", k) for tt, jt, k in _PTV2_BLOCK_TAILS],
     ("backbone.enc_stages.{s}.down.fc", _B + "enc{s}_pool/fc", "linear"),
-    ("backbone.enc_stages.{s}.down.norm.norm", _B + "enc{s}_pool/norm", "bn"),
+    ("backbone.enc_stages.{s}.down.norm.norm", _B + "enc{s}_pool/norm", "pointbn"),
     ("backbone.dec_stages.{s}.up.proj.0", _B + "dec{s}_unpool/proj_fc", "linear"),
-    ("backbone.dec_stages.{s}.up.proj.1.norm", _B + "dec{s}_unpool/proj_bn", "bn"),
+    ("backbone.dec_stages.{s}.up.proj.1.norm", _B + "dec{s}_unpool/proj_bn", "pointbn"),
     ("backbone.dec_stages.{s}.up.proj_skip.0", _B + "dec{s}_unpool/skip_fc", "linear"),
-    ("backbone.dec_stages.{s}.up.proj_skip.1.norm", _B + "dec{s}_unpool/skip_bn", "bn"),
+    ("backbone.dec_stages.{s}.up.proj_skip.1.norm", _B + "dec{s}_unpool/skip_bn", "pointbn"),
     ("backbone.seg_head.0", _B + "seg_fc1", "linear"),
-    ("backbone.seg_head.1.norm", _B + "seg_bn", "bn"),
+    ("backbone.seg_head.1.norm", _B + "seg_bn", "pointbn"),
     ("backbone.seg_head.3", _B + "seg_fc2", "linear"),
 ]
 
@@ -244,6 +266,30 @@ _SPUNET_RULES = [
                           for n, kind in (("conv", "conv"), ("bn", "bn"))],
                         ("proj.0", "proj", "conv"), ("proj.1", "proj_bn", "bn"))],
     ("backbone.final", _B + "final", "conv"),
+]
+
+# PT-v3 (each LayerNorm place twice: plain, "ln", and a PDLayerNorm's
+# banks, "pdln")
+_PTV3_BLOCK_TAILS = (
+    ("cpe.0", "cpe_conv", "conv"), ("cpe.1", "cpe_fc", "linear"),
+    *[t for tt, jt in (("cpe.2", "cpe_norm"), ("norm1.0", "norm1"), ("norm2.0", "norm2"))
+      for t in ((tt, f"{jt}/ln", "ln"), (tt, jt, "pdln"))],
+    ("attn.qkv", "attn/qkv", "linear"), ("attn.proj", "attn/proj", "linear"),
+    ("attn.rpe", "attn/rpe", "rpe"),
+    ("mlp.0.fc1", "mlp_fc1", "linear"), ("mlp.0.fc2", "mlp_fc2", "linear"),
+)
+_PTV3_RULES = [
+    ("backbone.embedding.stem.conv", _B + "embedding", "conv"),
+    ("backbone.embedding.stem.norm", _B + "embedding_bn", "bn"),
+    *[(f"backbone.{{st}}.{{st}}{{s}}.block{{b}}.{tt}", _B + f"{{st}}{{s}}_block{{b}}/{jt}", k)
+      for tt, jt, k in _PTV3_BLOCK_TAILS],
+    ("backbone.enc.enc{s}.down.proj", _B + "pool{s}_proj", "linear"),
+    ("backbone.enc.enc{s}.down.norm.0", _B + "pool{s}_bn", "bn"),
+    ("backbone.dec.dec{s}.up.proj.0", _B + "unpool{s}_proj", "linear"),
+    ("backbone.dec.dec{s}.up.proj.1", _B + "unpool{s}_bn", "bn"),
+    ("backbone.dec.dec{s}.up.proj_skip.0", _B + "unpool{s}_skip", "linear"),
+    ("backbone.dec.dec{s}.up.proj_skip.1", _B + "unpool{s}_skip_bn", "bn"),
+    ("seg_head", "seg_head", "linear"),
 ]
 
 # CAC-v1m1's own modules; its prototypes are root leaves (_ROOT_LEAVES)
@@ -279,6 +325,7 @@ RULES: List[Tuple[str, str, str]] = [
     ("conf.3", "conf2", "linear"),
     *_PTV2_RULES,
     *_SPUNET_RULES,
+    *_PTV3_RULES,
     *_CAC_RULES,
     *_ST_RULES,
 ]
@@ -299,18 +346,33 @@ _LEAVES = {
            "modulation_weight": ("params", "modulation_kernel"),
            "modulation_bias": ("params", "modulation_bias")},
     "ln": {"weight": ("params", "scale"), "bias": ("params", "bias")},
+    # a PDLayerNorm's banks stacked (``_stack_pd``) and its modulation
+    "pdln": {"pd_weight": ("params", "scale"), "pd_bias": ("params", "bias"),
+             "modulation_weight": ("params", "modulation_kernel"),
+             "modulation_bias": ("params", "modulation_bias")},
+    "rpe": {"rpe_table": ("params", "rpe_table")},
     "tables": {f"relative_pos_{n}_table": ("params", f"rel_{n}_table")
                for n in ("query", "key", "value")},
     "kpconv": {"weight": ("params", "kp_weight"),
                "K_points": ("batch_stats", "kp_points")},
 }
+# PT-v2's BatchNorm under its ``PointBatchNorm`` wrapper's ``.norm``
+_LEAVES["pointbn"] = _LEAVES["bn"]
+_BN_KINDS = ("bn", "pointbn")
 
 
 def _regex(template: str, sep: str) -> re.Pattern:
     parts = re.split(r"(\{\w+\})", template)
-    body = "".join(_GROUPS[p[1:-1]] if p.startswith("{") else re.escape(p)
-                   for p in parts)
-    return re.compile(body + re.escape(sep) + r"(?P<leaf>\w+)")
+    seen, body = set(), []
+    for p in parts:
+        if not p.startswith("{"):
+            body.append(re.escape(p))
+        elif p[1:-1] in seen:       # a group named twice: the same text
+            body.append(f"(?P={p[1:-1]})")
+        else:
+            seen.add(p[1:-1])
+            body.append(_GROUPS[p[1:-1]])
+    return re.compile("".join(body) + re.escape(sep) + r"(?P<leaf>\w+)")
 
 
 _TORCH_RX = [(_regex(t, "."), j, k) for t, j, k in RULES]
@@ -377,11 +439,14 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
                 arr = np.asarray(value)
                 if leaf == "modulation_weight" or (leaf == "weight" and _is_linear(kind, arr)):
                     arr = arr.T
-                if kind == "bn" and (arr.ndim == 2 or leaf.startswith("modulation")):
-                    _put_pd(sd, mod, leaf, arr)
+                if kind in _BN_KINDS and (arr.ndim == 2 or leaf.startswith("modulation")):
+                    _put_pd(sd, mod, leaf, arr, strip_norm=kind == "pointbn")
+                    break
+                if kind == "pdln":
+                    _put_pd_ln(sd, mod, leaf, arr)
                     break
                 sd[f"{mod}.{leaf}"] = torch.from_numpy(np.array(arr))
-                if kind == "bn":
+                if kind in _BN_KINDS:
                     sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
                 break
             else:
@@ -389,18 +454,23 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-# PDNorm (PT-v2m3): the JAX Dense "modulation" under a norm's path, and a
-# torch bank or modulation leaf under the norm's module
+# PDNorm (PT-v2m3, SpUNet-v1m3, PT-v3): the JAX Dense "modulation" under a
+# norm's path, and a torch bank or modulation leaf under the norm's module:
+# a PD BatchNorm's ``bns.{i}`` (``bn`` not decoupled), a PDLayerNorm's
+# ``norm.{i}`` (``norm``)
 _PD_MODULATION = re.compile(r"/modulation/(kernel|bias)$")
 _PD_TORCH = re.compile(
     r"(?P<mod>.+)\.(?:bns\.(?P<bank>\d+)|bn|modulation\.1)\.(?P<leaf>\w+)")
+_PD_LN_TORCH = re.compile(
+    r"(?P<mod>.+)\.(?:norm\.(?P<bank>\d+)|norm|modulation\.1)\.(?P<leaf>\w+)")
 
 
-def _put_pd(sd, mod, leaf, arr):
+def _put_pd(sd, mod, leaf, arr, strip_norm):
     """A PD norm's stacked JAX leaf -> its banks' (or modulation's) torch
     leaves; ``mod`` is the plain model's name of the BatchNorm: PT-v2m2's
-    ``<X>.norm`` (the PD norm replaces ``<X>``) or SpUNet's ``<X>``."""
-    base = mod[:-len(".norm")] if mod.endswith(".norm") else mod
+    ``<X>.norm`` (``strip_norm``: the PD norm replaces ``<X>``), or SpUNet's
+    and PT-v3's ``<X>``."""
+    base = mod[:-len(".norm")] if strip_norm else mod
     if leaf.startswith("modulation"):
         sd[f"{base}.modulation.1.{leaf[len('modulation_'):]}"] = torch.from_numpy(
             np.array(arr))
@@ -410,33 +480,53 @@ def _put_pd(sd, mod, leaf, arr):
         sd[f"{base}.bns.{i}.num_batches_tracked"] = torch.tensor(0)
 
 
+def _put_pd_ln(sd, mod, leaf, arr):
+    """A PDLayerNorm's stacked JAX leaf -> its banks' ``<mod>.norm.{i}``
+    (or modulation's) torch leaves."""
+    if leaf.startswith("modulation"):
+        sd[f"{mod}.modulation.1.{leaf[len('modulation_'):]}"] = torch.from_numpy(
+            np.array(arr))
+        return
+    for i, row in enumerate(arr):
+        sd[f"{mod}.norm.{i}.{leaf[len('pd_'):]}"] = torch.from_numpy(np.array(row))
+
+
 def _pd_bn_name(base: str):
     """The plain model's name of the BatchNorm whose place the PD norm
-    ``base`` takes (PT-v2m2's ``<base>.norm``, SpUNet's ``<base>``), or None
-    when ``base`` is no such place (its ``bns`` / ``bn`` / ``modulation``
-    child is then no PD norm's)."""
-    for name in (f"{base}.norm", base):
+    ``base`` takes (PT-v2m2's ``<base>.norm``, SpUNet's and PT-v3's
+    ``<base>``), or None when ``base`` is no such place (its ``bns`` /
+    ``bn`` / ``modulation`` child is then no PD norm's)."""
+    for name, kind in ((f"{base}.norm", "pointbn"), (base, "bn")):
         key = f"{name}.running_mean"
-        if any(kind == "bn" and rx.fullmatch(key) for rx, _, kind in _TORCH_RX):
+        if any(k == kind and rx.fullmatch(key) for rx, _, k in _TORCH_RX):
             return name
     return None
 
 
+def _is_ln_place(base: str) -> bool:
+    """Whether ``base`` names a LayerNorm that a PDLayerNorm may take."""
+    return any(k == "ln" and rx.fullmatch(f"{base}.weight") for rx, _, k in _TORCH_RX)
+
+
 def _stack_pd(state_dict):
     """A state_dict with each PD norm's leaves in the plain model's names
-    of its BatchNorm ``<N>``: the banks stacked (``<N>.weight`` (n_bank,
-    C)), the modulation as ``<N>.modulation_weight`` / ``_bias``."""
+    of its norm ``<N>``: a PD BatchNorm's banks stacked (``<N>.weight``
+    (n_bank, C)), a PDLayerNorm's as ``<N>.pd_weight`` / ``pd_bias``, the
+    modulation as ``<N>.modulation_weight`` / ``_bias``."""
     out, banks = {}, {}
     for key, value in state_dict.items():
         m = _PD_TORCH.fullmatch(key)
-        name = m and _pd_bn_name(m.group("mod"))
+        name, prefix = (m and _pd_bn_name(m.group("mod"))), ""
+        if not name:
+            m = _PD_LN_TORCH.fullmatch(key)
+            name, prefix = (m and _is_ln_place(m.group("mod")) and m.group("mod")), "pd_"
         if not name:
             out[key] = value
         elif ".modulation.1." in key:
             out[f"{name}.modulation_{m.group('leaf')}"] = value
         elif m.group("leaf") != "num_batches_tracked":
             bank = int(m.group("bank") or 0)
-            banks.setdefault(f"{name}.{m.group('leaf')}", {})[bank] = value
+            banks.setdefault(f"{name}.{prefix}{m.group('leaf')}", {})[bank] = value
     for key, rows in banks.items():
         out[key] = torch.stack([rows[i] for i in sorted(rows)])
     return out
@@ -446,11 +536,13 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """torch state_dict -> JAX ``{params, batch_stats}`` tree of numpy."""
     flat: Dict[str, np.ndarray] = {}
     num_layers = _st_num_layers(state_dict, r"backbone\.layers\.(\d+)\.", 2)
+    # CAC's prototypes are its ``seg_head``; DefaultSegmentorV2's is a Linear
+    root = _ROOT_LEAVES if any(k.startswith("feat_proj_layer.") for k in state_dict) else {}
     for key, value in _stack_pd(state_dict).items():
         if key.endswith(".num_batches_tracked"):
             continue
-        if key in _ROOT_LEAVES:
-            flat[_ROOT_LEAVES[key]] = np.ascontiguousarray(value.detach().cpu().numpy())
+        if key in root:
+            flat[root[key]] = np.ascontiguousarray(value.detach().cpu().numpy())
             continue
         for rx, jax_tmpl, kind in _TORCH_RX:
             m = rx.fullmatch(key)

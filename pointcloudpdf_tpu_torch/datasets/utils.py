@@ -1,4 +1,5 @@
-# Copied from pointcloudpdf_tpu/datasets/utils.py; keep in step.
+# Copied from pointcloudpdf_tpu/datasets/utils.py; keep in step (but for
+# ``bucket_capacity`` past the largest bucket, which does not truncate here).
 """Batch collation: variable-length samples -> static padded buffers.
 
 The reference concatenates samples and tracks cumulative ``offset``
@@ -38,11 +39,20 @@ DEFAULT_BUCKETS = tuple(
 )
 
 
+# past the largest bucket, the padded length is a multiple of this
+BUCKET_STEP = 65536
+
+
 def bucket_capacity(max_count: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
+    """The smallest bucket that holds ``max_count`` points; past the largest,
+    ``max_count`` rounded up to a multiple of ``BUCKET_STEP``.  (The JAX
+    package returns the largest bucket there, and its collation truncates the
+    sample: a test fragment of a room at 2 cm, or a Mix3D pair of 204,800-point
+    crops, loses points.)"""
     for b in sorted(buckets):
         if max_count <= b:
             return int(b)
-    return int(sorted(buckets)[-1])
+    return -(-int(max_count) // BUCKET_STEP) * BUCKET_STEP
 
 
 def padded_collate_fn(

@@ -1,8 +1,9 @@
 from .builder import MODELS, build_model
-from .default import DefaultSegmentor
+from .default import DefaultSegmentor, DefaultSegmentorV2
 from .norm import MaskedBatchNorm
 from . import point_transformer  # registers PointTransformer-Seg26/38/50
 from . import stratified_transformer  # registers ST-v1m1 / ST-v1m2
 from . import point_transformer_v2  # registers PT-v2m2 / PT-v2m1
 from . import context_aware_classifier  # registers CAC-v1m1
 from . import sparse_unet  # registers SpUNet-v1m1/v1m2/v1m3, MinkUNet*
+from . import point_transformer_v3  # registers PT-v3m1

@@ -212,6 +212,15 @@ class PDLayerNorm(nn.Module):
             y = _modulate(self.modulation, y, self.context)
         return y.to(x.dtype)
 
+    def _load_from_state_dict(self, state_dict, prefix, *args):
+        # a JAX tree's single bank comes through the bridge as norm.0, which
+        # is ``norm`` when the norm is not decoupled
+        if not self.decouple:
+            head = prefix + "norm.0."
+            for key in [k for k in state_dict if k.startswith(head)]:
+                state_dict[prefix + "norm." + key[len(head):]] = state_dict.pop(key)
+        super()._load_from_state_dict(state_dict, prefix, *args)
+
 
 # The JAX package defines ``_bn_factory`` in
 # pointcloudpdf_tpu/models/sparse_unet/spconv_unet.py; the port keeps it

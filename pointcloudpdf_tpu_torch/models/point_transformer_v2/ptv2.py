@@ -41,7 +41,8 @@ from torch.nn import functional as F
 
 from ...ops.geometry import divide_exact, gather_rows, knn
 from ...ops.gva import grouped_vector_attention, gva_plain
-from ...ops.voxel import capacity_dropped_points, count_dropped, unique_parents
+from ...ops.voxel import (capacity_dropped_points, count_dropped, flatten_slot_map,
+                          scatter_mean_to_parent, unique_parents)
 from ..builder import MODELS
 from ..norm import MaskedBatchNorm, PDMaskedBatchNorm, _bn_factory
 from ..utils.structure import where_valid
@@ -169,8 +170,9 @@ class BlockSequence(nn.Module):
 
 class GridPool(nn.Module):
     """Voxel-partition pooling: fc + BN + ReLU, then the max of each voxel's
-    features and the mean of its coordinates, into a fixed number of parent
-    slots, ``capacity`` (default: the child count).  Returns the child ->
+    features and the mean of its coordinates (summed in row order,
+    ``scatter_mean_to_parent``), into a fixed number of parent slots,
+    ``capacity`` (default: the child count).  Returns the child ->
     parent map too; children whose voxel overflows the capacity map to -1
     and are counted (``capacity_dropped_points``)."""
 
@@ -202,12 +204,10 @@ class GridPool(nn.Module):
             "amax")
         pooled = torch.where(torch.isfinite(pooled), pooled,
                              torch.zeros_like(pooled)).to(y.dtype)
-        w = valid.to(coord.dtype)
-        coord_sum = coord.new_zeros((B, cap, 3)).scatter_add(
-            1, slot[..., None].expand(-1, -1, 3), coord * w[..., None])
-        counts = coord.new_zeros((B, cap)).scatter_add(1, slot, w)
-        p_coord = coord_sum / torch.clamp(counts[..., None], min=1.0)
-        return pooled, p_coord, p_mask, c2p
+        # the same coordinates in every forward: the next level's kNN reads them
+        p_coord = scatter_mean_to_parent(coord.reshape(B * n, 3),
+                                         flatten_slot_map(c2p, cap), B * cap)
+        return pooled, p_coord.reshape(B, cap, 3), p_mask, c2p
 
 
 class UnpoolWithSkip(nn.Module):

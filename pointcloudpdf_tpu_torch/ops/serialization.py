@@ -1,11 +1,14 @@
-"""Z-order (morton) serialization of padded point sets.
+"""Space-filling-curve serialization of padded point sets: z-order (morton)
+and Hilbert codes.
 
 Counterpart of ``pointcloudpdf_tpu/ops/serialization.py`` (morton_encode,
-morton_sort_indices), used by blocked FPS to cut a sample into spatially
-coherent windows and by the bound-pruned kNN (K1) to cut it into compact
-chunks.  PyTorch has no uint32 arithmetic, so the 30-bit codes
-live in int64; the masked sentinel 0xFFFFFFFF still sorts after every
-code, and ``stable=True`` repeats ``jnp.argsort``'s order on equal codes.
+morton_sort_indices, hilbert_encode, serialize_code), used by blocked FPS to
+cut a sample into spatially coherent windows, by the bound-pruned kNN (K1)
+to cut it into compact chunks and by PT-v3 to order its patches.  PyTorch
+has no uint32 arithmetic, so the 30-bit codes live in int64; the masked
+sentinel 0xFFFFFFFF still sorts after every code, and ``stable=True``
+repeats ``jnp.argsort``'s order on equal codes.  Coordinates clip to 10
+bits an axis, as in the JAX package: past 1023 a coordinate becomes 1023.
 """
 
 from __future__ import annotations
@@ -34,6 +37,50 @@ def morton_encode(grid_coord: torch.Tensor) -> torch.Tensor:
             | (_part1by2(g[..., 2]) << 2))
 
 
+def hilbert_encode(grid_coord: torch.Tensor, bits: int = MORTON_BITS) -> torch.Tensor:
+    """(..., 3) non-negative integer coords -> (...,) int64 Hilbert-curve
+    codes (Skilling's axes -> transpose transform, then the transposed bits
+    interleaved, axis 0 most significant of each triple); values clipped to
+    ``bits`` bits.  Code for code the JAX ``hilbert_encode``."""
+    g = grid_coord.to(torch.int64).clamp(0, (1 << bits) - 1)
+    x = [g[..., 0], g[..., 1], g[..., 2]]
+    for shift in range(bits - 1, 0, -1):
+        q = 1 << shift
+        p = q - 1
+        for i in range(3):
+            hit = (x[i] & q) != 0
+            # invert x[0]'s low bits, or exchange the low bits of x[0] and x[i]
+            t = (x[0] ^ x[i]) & p
+            x0 = torch.where(hit, x[0] ^ p, x[0] ^ t)
+            if i != 0:
+                x[i] = torch.where(hit, x[i], x[i] ^ t)
+            x[0] = x0
+    # Gray encode
+    x[1] = x[1] ^ x[0]
+    x[2] = x[2] ^ x[1]
+    t = torch.zeros_like(x[0])
+    for shift in range(bits - 1, 0, -1):
+        q = 1 << shift
+        t = torch.where((x[2] & q) != 0, t ^ (q - 1), t)
+    x = [xi ^ t for xi in x]
+    return (_part1by2(x[0]) << 2) | (_part1by2(x[1]) << 1) | _part1by2(x[2])
+
+
+def serialize_code(grid_coord: torch.Tensor, order: str = "z") -> torch.Tensor:
+    """(..., 3) int grid -> (...,) int64 code of the named curve order:
+    ``z``, ``z-trans`` (x and y swapped), ``hilbert``, ``hilbert-trans``
+    (``_`` for ``-`` too), the reference's names."""
+    order = order.replace("_", "-")
+    if order.endswith("-trans"):
+        grid_coord = grid_coord[..., [1, 0, 2]]
+        order = order[: -len("-trans")]
+    if order == "z":
+        return morton_encode(grid_coord)
+    if order == "hilbert":
+        return hilbert_encode(grid_coord)
+    raise NotImplementedError(f"unknown serialization order: {order}")
+
+
 def morton_codes(coord: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-sample z-order codes, masked points at the sentinel 0xFFFFFFFF.
 
@@ -59,3 +106,4 @@ def morton_sort_indices(coord: torch.Tensor, mask: torch.Tensor) -> torch.Tensor
     """Per-sample permutation sorting points by morton code (``morton_codes``),
     masked last: coord (B, N, 3) float, mask (B, N) bool -> (B, N) int64."""
     return torch.argsort(morton_codes(coord, mask), dim=-1, stable=True)
+

@@ -233,14 +233,26 @@ def gather_conv(feat: torch.Tensor, nbr, weights: torch.Tensor) -> torch.Tensor:
     return out.index_add(0, rules.out_rows, y.to(acc)).to(feat.dtype)
 
 
+# absent children's rows: segments of their own past the parents, this
+# many, so that no one segment is long
+_ABSENT_SEGMENTS = 1024
+
+
 def scatter_mean_to_parent(feat: torch.Tensor, child_to_parent: torch.Tensor,
                            num_parents: int) -> torch.Tensor:
     """Mean-pool child features (M, C) onto ``num_parents`` slots by the
-    flat child -> parent map (-1 absent); empty slots 0."""
-    child = torch.nonzero(child_to_parent >= 0).squeeze(1)
-    parent = child_to_parent.index_select(0, child).long()
-    summed = feat.new_zeros((num_parents, feat.shape[-1])).index_add(
-        0, parent, feat.index_select(0, child))
-    counts = feat.new_zeros((num_parents,)).index_add(
-        0, parent, torch.ones_like(parent, dtype=feat.dtype))
-    return summed / torch.clamp(counts[:, None], min=1.0)
+    flat child -> parent map (-1 absent); empty slots 0.
+
+    A parent's children are added in row order (a stable sort by parent,
+    then a segment sum), on the card as on the CPU: atomic adds (``index_add``,
+    ``scatter_add``) take them in any order there, and a pooled coordinate's
+    last bit then differs from one forward to the next and can flip a kNN
+    tie at the next level."""
+    m = child_to_parent.shape[0]
+    spread = num_parents + torch.arange(m, device=feat.device) % _ABSENT_SEGMENTS
+    key = torch.where(child_to_parent >= 0, child_to_parent.long(), spread)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=num_parents + _ABSENT_SEGMENTS)
+    summed = torch.segment_reduce(feat.index_select(0, order), "sum", lengths=counts,
+                                  axis=0)[:num_parents]
+    return summed / torch.clamp(counts[:num_parents, None].to(feat.dtype), min=1.0)

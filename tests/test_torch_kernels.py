@@ -922,3 +922,19 @@ def test_ptv2_block_takes_kernel_in_eval_and_plain_in_training(dev):
     block(q, coord, idx, nmask, mask).sum().backward()
     assert gva.GVA_LAUNCHES == before + 1
     assert block.attn.linear_p_bias[3].weight.grad.abs().max() > 0
+
+
+def test_grid_pool_coordinates_bit_equal_on_the_card(dev):
+    """PT-v2's ``GridPool`` means its children's coordinates in row order:
+    two forwards on the card and one on the CPU give the same pooled
+    coordinates bit for bit (atomic adds took the children in any order,
+    and a last-bit difference flipped a kNN tie at the next level in
+    ``chip_smoke.py`` phase 11's kernels-against-plain check)."""
+    coord, mask = _cloud(12, 2, 65536, [65536, 40000], dev)
+    pool = ptv2.GridPool(16, 32, 0.06).to(dev).eval()
+    feat = torch.randn(2, 65536, 16, device=dev, generator=torch.Generator(dev).manual_seed(12))
+    with torch.inference_mode():
+        runs = [pool(feat, coord, mask, capacity=32768)[1] for _ in range(2)]
+        cpu = pool.cpu()(feat.cpu(), coord.cpu(), mask.cpu(), capacity=32768)[1]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0].cpu(), cpu)

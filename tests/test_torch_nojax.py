@@ -6,7 +6,8 @@ PT-v2m2 forward run on the CPU, the open-set trainer takes one training step,
 the incremental trainer one distillation step and the default trainer one
 PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step, a narrow SpUNet-v1m1
 forward and step from the shipped S3DIS config and a CAC-v1m1 step over
-it, and ``launch`` runs a
+it, a narrow PT-v3m1 forward and step from the shipped S3DIS ``-rpe``
+config, and ``launch`` runs a
 gloo group of one (the data-parallel engine's collectives).  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
@@ -246,6 +247,32 @@ out = cac_sp.comm_info["model_output_dict"]
 assert set(out) == {"loss", "seg_loss", "pre_loss", "pre_self_loss", "kl_loss"}
 assert all(np.isfinite(float(v)) for v in out.values())
 
+# the shipped S3DIS PT-v3m1 -rpe config at narrow widths: an eval forward
+# through DefaultSegmentorV2, then one DefaultTrainer step (AdamW,
+# OneCycleLR, the "block" group, CE + Lovasz, drop path 0.3)
+v3_cfg = default_config_parser(ROOT + "/configs/s3dis/semseg-pt-v3m1-0-rpe.py")
+assert v3_cfg.model.type == "DefaultSegmentorV2" and v3_cfg.model.backbone.enable_rpe
+v3_cfg.model.backbone.update(
+    stride=(2,), enc_depths=(1, 1), enc_channels=(16, 16), enc_num_head=(2, 2),
+    enc_patch_size=(32, 32), dec_depths=(1,), dec_channels=(16,), dec_num_head=(2,),
+    dec_patch_size=(32,))
+v3_cfg.model.backbone_out_channels = 16
+v3_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                        "enable_amp": False, "evaluate": False, "hooks": [],
+                        "epoch": 2, "eval_epoch": 2})
+v3_cfg.data.train = dict(type="NoJaxScenes")
+v3 = TRAINERS.build(dict(type="DefaultTrainer", cfg=v3_cfg))
+v3.model.eval()
+with torch.inference_mode():
+    logits = v3.model(v3.device_batch(sp_input))["seg_logits"]
+assert logits.shape == (2, n, 13) and torch.isfinite(logits).all()
+before = v3.model.seg_head.weight.detach().clone()
+v3._dispatch_train(v3.device_batch(sp_input))
+assert set(v3.comm_info["model_output_dict"]) == {"loss"}
+assert np.isfinite(float(v3.comm_info["model_output_dict"]["loss"]))
+assert not torch.equal(before, v3.model.seg_head.weight)
+assert voxel.capacity_dropped_points(reset=True) == 0
+
 from pointcloudpdf_tpu_torch.engines.launch import launch
 from pointcloudpdf_tpu_torch.utils import comm
 seen = []
@@ -277,7 +304,8 @@ def test_port_runs_without_jax():
     "tools/_profile_torch.py", "tools/attn_fwd_compare_torch.py",
     "tools/attn_bwd_compare_torch.py", "tools/st_attention_compare_torch.py",
     "tools/fps_compare_torch.py", "tools/kpconv_compare_torch.py",
-    "tools/kpconv_clocks.py", "tests/test_torch_kernels.py",
+    "tools/kpconv_clocks.py", "tools/ptv3_rpe_compare_torch.py",
+    "tests/test_torch_kernels.py",
     "tests/test_torch_fps_windows.py", "tests/test_torch_kpconv_tiles.py",
     "tests/torch_ddp_ranks.py"])
 def test_no_jax_import_in_port_sources(path):

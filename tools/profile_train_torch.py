@@ -1,6 +1,6 @@
 """Where one training step of the PyTorch port goes, on one GPU.
 
-    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2|spunet]
+    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2|spunet|ptv3]
         [--batch-size N] [--steps 3] [--out FILE]
 
 Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``) and a trainer
@@ -11,10 +11,14 @@ drop path 0.3), ``incr`` ``IncrSegTrainer`` on the incremental config (a
 seeded Seg50 teacher, Seg50 student with two more classes), ``ptv2``
 ``DefaultTrainer`` on the S3DIS PT-v2m2 config (AdamW, Mix3D 0.8, drop path
 0.3, level capacity 0.5), ``spunet`` the same trainer on the S3DIS
-SpUNet-v1m1 config (SGD, PolyLR, Mix3D 0.8, level capacity 0.5); autocast
-as each config ships.  The batch size is ``--batch-size``, else 16, and for
-``ptv2`` and ``spunet`` the largest of ``chip_smoke.PTV2_TRAIN_BATCHES`` (12
-shipped, 6, 3, 2, 1) that fits the card's memory.  Prints, for one fixed batch:
+SpUNet-v1m1 config (SGD, PolyLR, Mix3D 0.8, level capacity 0.5), ``ptv3``
+the same trainer on the S3DIS PT-v3m1 ``-rpe`` config (AdamW, OneCycleLR,
+Mix3D 0.8, drop path 0.3, level capacity 0.5) over rooms made as
+``chip_smoke.PTV3_ROOM`` makes them (with normals, at 2,800 points a square
+metre); autocast as each config ships.  The batch size is ``--batch-size``,
+else 16, and for ``ptv2``, ``spunet`` and ``ptv3`` the largest of
+``chip_smoke.PTV2_TRAIN_BATCHES`` (12 shipped, 6, 3, 2, 1) that fits the
+card's memory.  Prints, for one fixed batch:
 milliseconds per train step
 (CUDA events and host clock), the device's busy time and idle share and its
 split by kind of kernel (``torch.profiler``), every kernel's launches in a
@@ -22,11 +26,14 @@ step, peak device memory; for ``pt`` also the forward share of the
 batch-statistics pass (CUDA events around ``attention_train_affines``); for
 ``pt`` and ``st`` the host side of the pseudo-label pipeline (score pass,
 fetch, graph stage) beside the train step it is meant to hide behind; for
-``incr`` the teacher's forward alone; for ``ptv2`` and ``spunet`` the
-share of the step in PyTorch's sort-based backward of advanced indexing
-(the plain grouped attention's gathers; SpUNet's rulebook conv gathers with
-``index_select`` and should show none) and one evaluator forward over the
-val room (K7 and K1 by the profiler).  ``--out`` also writes the numbers as JSON.
+``incr`` the teacher's forward alone; for ``ptv2``, ``spunet`` and ``ptv3``
+the share of the step in PyTorch's sort-based backward of advanced indexing
+(the plain grouped attention's gathers; SpUNet's rulebook conv and PT-v3's
+gathers and RPE lookup use ``index_select`` and should show none) and one
+evaluator forward over the val room (K7 and K1 by the profiler); for
+``ptv3`` also the step's cost of the RPE lookup and of the patch
+attention's core, by taking each out (``ptv3_ablations``).  ``--out`` also
+writes the numbers as JSON.
 Needs a CUDA device.
 """
 
@@ -46,11 +53,54 @@ import chip_smoke  # noqa: E402
 from _profile_torch import card_line, knn_calls, profile_call, write_result  # noqa: E402
 
 
+def ptv3_ablations(step, start, end, steps, step_ms):
+    """PT-v3's step with a part taken out, by CUDA events: without the RPE
+    lookup (a 0 bias: its gather and scatter-add gone, the add kept), and
+    without the patch attention's core (each block's attention its qkv
+    Linear's first third through ``proj``: the gathers, logits, softmax,
+    RPE and p v gone).  The step's ms less each is that part's cost, forward
+    and backward.  Only a measurement: the ablated steps compute another
+    network."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.models.point_transformer_v3 import ptv3
+    from pointcloudpdf_tpu_torch.models.utils.structure import where_valid
+
+    def no_rpe(self, index):
+        return torch.zeros((), device=index.device)
+
+    def no_core(self, feat, level, oi):
+        return where_valid(level.mask, self.proj(self.qkv(feat)[..., :self.channels]))
+
+    out = {}
+    for name, cls, attr, patch in (("rpe", ptv3.RPE, "forward", no_rpe),
+                                   ("attention_core", ptv3.SerializedAttention,
+                                    "forward", no_core)):
+        orig = getattr(cls, attr)
+        setattr(cls, attr, patch)
+        try:
+            step()
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(steps):
+                step()
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            setattr(cls, attr, orig)
+        ms = start.elapsed_time(end) / steps
+        out[name] = {"step_ms_without": ms, "cost_ms": step_ms - ms,
+                     "share": (step_ms - ms) / step_ms}
+        print(f"step without the {name.replace('_', ' ')}: {ms:.1f} ms, so it costs "
+              f"{step_ms - ms:.1f} ms ({(step_ms - ms) / step_ms:.3f} of the step)")
+    return out
+
+
 def main():
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2", "spunet"),
+    parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2", "spunet", "ptv3"),
                         default="pt")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--out", default=None, help="write the numbers here as JSON")
@@ -72,8 +122,10 @@ def main():
         "st": (chip_smoke.ST_CONFIG, "OpenSegTrainer"),
         "incr": (chip_smoke.INCR_CONFIG, "IncrSegTrainer"),
         "ptv2": (chip_smoke.PTV2_CONFIG, "DefaultTrainer"),
-        "spunet": (chip_smoke.SPUNET_CONFIG, "DefaultTrainer")}[args.workload]
-    closed_set = args.workload in ("ptv2", "spunet")
+        "spunet": (chip_smoke.SPUNET_CONFIG, "DefaultTrainer"),
+        "ptv3": (chip_smoke.PTV3_CONFIG, "DefaultTrainer")}[args.workload]
+    closed_set = args.workload in ("ptv2", "spunet", "ptv3")
+    room = chip_smoke.PTV3_ROOM if args.workload == "ptv3" else {}
     sizes = ([args.batch_size] if args.batch_size else
              list(chip_smoke.PTV2_TRAIN_BATCHES) if closed_set else [16])
     result = {"card": card, "workload": args.workload, "config": os.path.relpath(config, ROOT)}
@@ -84,8 +136,9 @@ def main():
             os.makedirs(os.path.join(data_root, area))
         for i in range(2 * max(sizes)):
             chip_smoke.synthetic_room(rng, os.path.join(
-                data_root, chip_smoke.TRAIN_AREAS[i % 5], f"office_{i}.npz"))
-        chip_smoke.synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"))
+                data_root, chip_smoke.TRAIN_AREAS[i % 5], f"office_{i}.npz"), **room)
+        chip_smoke.synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"),
+                                  **room)
         open_set = trainer_type == "OpenSegTrainer"
         result["batch_sizes_out_of_memory"] = []
         for batch_size in sizes:
@@ -175,6 +228,9 @@ def main():
                                                  / result["device_busy_ms"])
             print(f"indexing backward: {result['indexing_backward_ms']:.1f} ms, "
                   f"{result['indexing_backward_share']:.3f} of busy")
+            if args.workload == "ptv3":
+                result["ablations"] = ptv3_ablations(step, start, end, args.steps,
+                                                     result["step_ms_events"])
             # one evaluator forward over the val room (K7 and K1)
             val = trainer.device_batch(next(iter(trainer.val_loader)))
             result["eval_shape"] = list(val["coord"].shape)
