@@ -84,7 +84,10 @@ Phases, in order; any failure exits non-zero:
    2 x 8 (or the largest of 8, 4 that fits), three steps from one seeded
    state (Mix3D off, the last two past ``start_epoch``) against one
    process on the same global batches and kernels: the losses, the first
-   step's gradient, the running statistics (equal on both ranks, within
+   step's gradient (both f32 gradients held against one process's float64
+   gradient on the plain versions, ``check_first_gradient``, and the
+   float64 gradient of two ranks against one process's), the running
+   statistics (equal on both ranks, within
    ``TOL_DDP_STATS`` of one process's after the first step), the
    parameters equal on both ranks after every step, K1-K4's launches in
    each rank equal to one process's, each batch's score sheets from the
@@ -135,7 +138,28 @@ Phases, in order; any failure exits non-zero:
    one step's loss under autocast against f32; (c) one ``DefaultTrainer``
    step and one eval forward of the shipped ScanNet PT-v3m1 config
    (patches of 1,024, no RPE) on 2 x 8,000 points at ScanNet's grid, with
-   its peak memory.
+   its peak memory;
+15. Point Prompt Training (no kernel of its own, so no K1-K7 launch
+   anywhere in it, asserted): (a) seeded synthetic scenes in the
+   Structured3D, ScanNet and S3DIS layouts (phase 14's rooms, each labelled
+   in its dataset's class space: 25 / 20 / 13), ``tools/train_torch.py`` on
+   the shipped S3DIS PPT config (PPT-v1m1 over SpUNet-v1m3) at full width
+   (the largest batch of 12, 6, 3, 2, 1 that fits; SGD, OneCycleLR,
+   autocast and Mix3D as shipped), one epoch of four steps at the
+   datasets' ratios 2 : 1 : 1, each step's condition its batch's dataset's,
+   the evaluator on the S3DIS val area under ``S3DIS``;
+   ``tools/test_torch.py`` on the checkpoint through a config that adds a
+   ``data.test`` under ``S3DIS``; the largest fragment's voxel maps on the
+   card equal to the CPU's and its logits under each of the three
+   conditions within ``TOL_SPUNET_LOGITS`` of the port's CPU forward, its
+   forward timed; one batch's train step timed with its peak memory, its
+   ``indexing_backward_kernel`` share and its loss under autocast against
+   f32; (b) one ``MultiDatasetTrainer`` step and one eval forward of the
+   shipped S3DIS PT-v3 PPT-extreme config (PD BatchNorm and LayerNorm
+   banks, patches of 1,024) at the largest batch of 24, 12, 6, 2, 1 that
+   fits, with its peak memory; (c) one step and one eval forward of the
+   SemanticKITTI PPT-v1m2 model dict (over SpUNet-v1m3) on 2 x 8,000
+   indoor points, its idle heads moved by AdamW's decay alone.
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -143,6 +167,7 @@ Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}`
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import glob
 import json
@@ -2202,24 +2227,142 @@ TOL_DDP_STATS = 1e-3
 # (4.8e-7-6.6e-7 of max |sheet| measured), which flips a few points in the host graph stage at
 # some batches; the graph stage on equal sheets is held bit for bit
 TOL_DDP_SHEETS = 1e-5
+# the first step's gradient in float64, two ranks against one process, of a
+# tensor's max |grad| (tests/test_torch_ddp.py holds 1e-9 on the CPU)
+TOL_FLOAT64_RANKS = 1e-10
 
 
-def gradient_gap(grads, ref):
+def gradient_errors(grads, ref):
     """A whole-network gradient against a reference (dicts of numpy arrays
-    by parameter name): the worst tensor's error of its max |grad| (a bias
-    at the larger of its own and its weight's scale: a bias ahead of a
-    batch-statistic BatchNorm or the softmax has an exact gradient of 0),
-    and the whole gradient's error of its length (L2)."""
-    worst, diff2, norm2 = (0.0, None), 0.0, 0.0
+    by parameter name, over the reference's keys): each tensor's error of
+    its max |grad| (a bias at the larger of its own and its weight's scale:
+    a bias ahead of a batch-statistic BatchNorm or the softmax has an exact
+    gradient of 0), and the whole gradient's error of its length (L2)."""
+    errors, diff2, norm2 = {}, 0.0, 0.0
     for key, r in ref.items():
+        r = r.astype(np.float64)
+        g = grads[key].astype(np.float64)
         scale = float(np.abs(r).max())
         weight = key[:-len("bias")] + "weight"
         if key.endswith(".bias") and weight in ref and r.shape != ref[weight].shape:
             scale = max(scale, float(np.abs(ref[weight]).max()))
-        worst = max(worst, (float(np.abs(grads[key] - r).max()) / max(scale, 1e-30), key))
-        diff2 += float(((grads[key] - r).astype(np.float64) ** 2).sum())
-        norm2 += float((r.astype(np.float64) ** 2).sum())
-    return worst, (diff2 / norm2) ** 0.5
+        errors[key] = float(np.abs(g - r).max()) / max(scale, 1e-30)
+        diff2 += float(((g - r) ** 2).sum())
+        norm2 += float((r ** 2).sum())
+    return errors, (diff2 / norm2) ** 0.5
+
+
+def gradient_gap(grads, ref):
+    """``gradient_errors``' worst tensor (error, name) and whole error."""
+    errors, whole = gradient_errors(grads, ref)
+    worst = max(errors, key=errors.get)
+    return (errors[worst], worst), whole
+
+
+@contextlib.contextmanager
+def float64_plain():
+    """A float64 pass of the PT-v1 open-set model on the card: the kernels'
+    plain versions (K1-K4 are f32 kernels), a training attention layer on
+    its plain differentiable formulation (``_unfused``, the CPU's; the
+    fused op's batch-statistic pass is f32), the port's f32 casts
+    (``.float()``) letting a float64 tensor through, and every attention
+    layer and down transition recomputing its forward in the backward
+    (``torch.utils.checkpoint``) instead of keeping its (B, N, K, C)
+    tensors, which at phase 12's batch would not fit the card in float64.
+    The discrete choices stay the f32 run's: FPS picks and kNN tables are
+    taken on the f32 coordinates (the plain versions equal K1 and K2 bit
+    for bit there), the kNN distances then computed in float64; in float64
+    a near-tie would pick other points and another network."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    from pointcloudpdf_tpu_torch.models.point_transformer import modules
+    from pointcloudpdf_tpu_torch.models.point_transformer import point_transformer_seg as seg
+    from pointcloudpdf_tpu_torch.ops import _cuda, geometry
+
+    to_float = torch.Tensor.float
+    knn, fps = geometry.knn, modules.blocked_farthest_point_sampling
+
+    def f32_knn(query, ref, k, ref_mask=None):
+        idx, dist2 = knn(query.to(torch.float32), ref.to(torch.float32), k, ref_mask=ref_mask)
+        if query.dtype != torch.float64:
+            return idx, dist2
+        diff = geometry.gather_rows(ref, idx.clamp(min=0)) - query[:, :, None, :]
+        return idx, torch.where(torch.isfinite(dist2), (diff * diff).sum(-1),
+                                torch.full_like(dist2, float("inf"), dtype=torch.float64))
+
+    def f32_fps(coord, *args, **kwargs):
+        return fps(coord.to(torch.float32), *args, **kwargs)
+
+    layer = modules.PointTransformerLayer
+    fused_train = layer._fused_train
+    layer._fused_train = layer._unfused
+    geometry.knn = modules.knn = seg.knn = f32_knn
+    modules.blocked_farthest_point_sampling = f32_fps
+    forwards = {cls: cls.forward for cls in (layer, modules.TransitionDown)}
+    torch.Tensor.float = lambda t, *args, **kwargs: (
+        t if t.dtype == torch.float64 else to_float(t, *args, **kwargs))
+    def recomputed(forward):
+        def wrapped(self, *args):
+            return checkpoint(forward, self, *args, use_reentrant=False)
+        return wrapped
+
+    for cls, forward in forwards.items():
+        cls.forward = recomputed(forward)
+    try:
+        with _cuda.plain_versions():
+            yield
+    finally:
+        torch.Tensor.float = to_float
+        layer._fused_train = fused_train
+        geometry.knn = modules.knn = seg.knn = knn
+        modules.blocked_farthest_point_sampling = fps
+        for cls, forward in forwards.items():
+            cls.forward = forward
+
+
+def float64_first_gradient(work, cfg, input_dict):
+    """The gradient of phase 12(a)'s first step (epoch 0: the segmentation
+    loss alone) from the saved start, in float64 on the plain versions, on
+    this process's share of the global batch ``input_dict``, summed over
+    the ranks where there are several: {name: float64 array}."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="OpenSegTrainer", cfg=cfg))
+    start = torch.load(os.path.join(work, "ddp_start.pt"))
+    for name, module in trainer.modules().items():
+        module.load_state_dict(start[name])
+    model = trainer.model.double().train()
+    batch = {k: v.double() if torch.is_tensor(v) and v.is_floating_point() else v
+             for k, v in trainer.device_batch(input_dict).items()}
+    with float64_plain():
+        model.loss(model(batch)["seg_logits"], batch["segment"]).backward()
+    trainer.sum_gradients()
+    grads = {f"model.{n}": p.grad.cpu().numpy() for n, p in model.named_parameters()
+             if p.grad is not None}
+    del trainer, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return grads
+
+
+def ddp_float64_rank(work, cfg):
+    """``launch``'s ``main_func`` for phase 12(a)'s float64 check: this
+    rank's shard of the first global batch through ``float64_first_gradient``;
+    pickled to ``work/ddp64_rank<r>.pkl``."""
+    import pickle
+
+    from pointcloudpdf_tpu_torch.utils import comm
+
+    rank, world = comm.get_rank(), comm.get_world_size()
+    with open(os.path.join(work, "ddp_batches.pkl"), "rb") as f:
+        first = shard_input(pickle.load(f)[0], rank, world)
+    grads = float64_first_gradient(work, cfg, first)
+    with open(os.path.join(work, f"ddp64_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(grads, f)
 
 
 def ddp_config(work, data_root, batch_size):
@@ -2556,12 +2699,7 @@ def run_ddp_training(work, data_root):
     flagged = [s["out"].get("pseudo_flagged", 0.0) for s in ref]
     expect(flagged[0] == 0.0 and min(flagged[1:]) > 0.0,
            f"pseudo-labelling fired past start_epoch: {flagged}")
-    (worst, where), whole = gradient_gap(ranks[0]["grads"], one["grads"])
-    expect(len(ranks[0]["grads"]) == len(one["grads"]) and worst <= TOL_GRAD,
-           f"first step's gradient, world 2 against world 1, {len(one['grads'])} "
-           f"tensors: worst {worst:.3e} of its max |grad| at {where} <= {TOL_GRAD}")
-    expect(whole <= TOL_GRAD_WHOLE,
-           f"first step's gradient as a whole: {whole:.3e} <= {TOL_GRAD_WHOLE}")
+    check_first_gradient(work, cfg, one, ranks, again)
     step_ms = {w: [s["ms"] for s in steps] for w, steps in ((1, ref), (2, s0))}
     allreduce_ms = [s["allreduce_ms"] for s in s0]
     print(f"  step ms (host clock, synchronised): world 1 {step_ms[1]}, world 2 "
@@ -2581,6 +2719,66 @@ def run_ddp_training(work, data_root):
                           allreduce_ms=allreduce_ms, peak=[r["peak"] for r in ranks],
                           one_peak=one["peak"], wall=wall, cfg=cfg,
                           all_reduces=ranks[0]["all_reduces"])
+
+
+def check_first_gradient(work, cfg, one, ranks, again):
+    """The first step's f32 gradient, two ranks against one process, held
+    against the float64 gradient of one process on the plain versions
+    (same batch, same start), as ``tests/test_torch_cac_losses.py``'s
+    ``assert_gradient_triple`` holds a gradient: each f32 gradient within
+    ``TOL_GRAD_WHOLE`` of float64 as a whole; a tensor of the ranks within
+    ``TOL_GRAD`` of float64 or of one process's, except where one process's
+    is itself more than ``TOL_GRAD`` off float64 (a gradient at the level of
+    f32 noise): there the ranks' within ``TOL_GRAD`` of float64, or closer
+    to it than one process's.  (Two f32 gradients each within ``TOL_GRAD``
+    of float64 can sit up to twice that apart: held to one process alone,
+    the ranks failed two of three repeated runs on an H100 at 0.252 and
+    0.261 where both were within 0.25 of float64.)  Then the float64 gradient of two
+    gloo ranks on the plain versions against one process's within
+    ``TOL_FLOAT64_RANKS``: the semantic check of the sums over ranks."""
+    import pickle
+
+    from pointcloudpdf_tpu_torch.engines.launch import launch
+
+    exact = float64_first_gradient(work, cfg, one["batches"][0])
+    launch(ddp_float64_rank, num_gpus_per_machine=2, cfg=(work, cfg), backend="gloo",
+           device=DEVICE)
+    rank64 = []
+    for r in range(2):
+        with open(os.path.join(work, f"ddp64_rank{r}.pkl"), "rb") as f:
+            rank64.append(pickle.load(f))
+    expect(set(ranks[0]["grads"]) >= set(exact) and set(one["grads"]) >= set(exact),
+           f"the f32 gradients hold the {len(exact)} tensors of the float64 one")
+    ro, ro_whole = gradient_errors(ranks[0]["grads"], one["grads"])
+    of, of_whole = gradient_errors(one["grads"], exact)
+    rf, rf_whole = gradient_errors(ranks[0]["grads"], exact)
+    af, af_whole = gradient_errors(again["grads"], exact)
+    for name, errors, whole in (("world 2 - world 1", ro, ro_whole),
+                                ("world 1 - float64", of, of_whole),
+                                ("world 2 - float64", rf, rf_whole),
+                                ("world 1 again - float64", af, af_whole)):
+        top = sorted(errors, key=errors.get)[-3:][::-1]
+        print(f"  first step's gradient, {name}: worst tensors "
+              f"{[(k, round(errors[k], 4)) for k in top]}, whole {whole:.3e}")
+    expect(of_whole <= TOL_GRAD_WHOLE and rf_whole <= TOL_GRAD_WHOLE,
+           f"first step's f32 gradients within {TOL_GRAD_WHOLE} of float64 as a whole")
+    noisy = sorted(k for k in exact if of[k] > TOL_GRAD)
+    print(f"  tensors where world 1's f32 gradient is over {TOL_GRAD} off float64 "
+          f"(held against float64): {[(k, round(of[k], 3), round(rf[k], 3)) for k in noisy]}")
+    failing = [k for k in exact if rf[k] > TOL_GRAD
+               and (rf[k] >= of[k] if k in noisy else ro[k] > TOL_GRAD)]
+    expect(not failing, f"first step's gradient, {len(exact)} tensors: world 2 within "
+                        f"{TOL_GRAD} of float64 or of world 1, or where world 1 is over "
+                        f"{TOL_GRAD} off float64, closer to it than world 1; failing "
+                        f"(tensor, world 2 - world 1, world 1 - float64, world 2 - float64) "
+                        f"{[(k, ro[k], of[k], rf[k]) for k in failing]}")
+    for r, grads in enumerate(rank64):
+        worst, _ = gradient_gap(grads, exact)
+        print(f"  float64 gradient, rank {r} of 2 against one process: worst tensor "
+              f"{worst[0]:.3e} ({worst[1]})")
+        expect(set(grads) == set(exact) and worst[0] <= TOL_FLOAT64_RANKS,
+               f"float64: rank {r}'s summed gradient within {TOL_FLOAT64_RANKS} of one "
+               "process's")
 
 
 def one_step(trainer, input_dict, out, grouped):
@@ -2729,12 +2927,13 @@ def no_kernel_launched(launches, what):
 
 def check_fragment_maps(tester, fragment, batch, name="SpUNet",
                           keys=("nbr5", "nbr3", "grid", "mask", "c2p"),
-                          tol=TOL_SPUNET_LOGITS):
+                          tol=TOL_SPUNET_LOGITS, conditions=(None,)):
     """The largest fragment's voxel maps built on the card equal the CPU's
     bit for bit (``keys`` of the backbone's ``index_maps``: every level's
     neighbour table, the stem's, the parent maps and masks; PT-v3's curve
     sorts), and its logits on the card are within ``tol`` of max |logit| of
-    the port's CPU forward."""
+    the port's CPU forward, under each of ``conditions`` (the batch's own
+    where None).  Returns each condition's logits' class count."""
     import copy
 
     import torch
@@ -2743,7 +2942,7 @@ def check_fragment_maps(tester, fragment, batch, name="SpUNet",
 
     backbone = tester.model.backbone
     cpu_model = copy.deepcopy(tester.model).cpu()
-    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_batch = {k: v.cpu() if torch.is_tensor(v) else v for k, v in batch.items()}
     with torch.inference_mode():
         maps = backbone.index_maps(batch["grid_coord"], batch["mask"])
         ref = cpu_model.backbone.index_maps(cpu_batch["grid_coord"], cpu_batch["mask"])
@@ -2757,17 +2956,22 @@ def check_fragment_maps(tester, fragment, batch, name="SpUNet",
     print(f"  level sizes {[int(m.sum()) for m in maps['mask']]} voxels, rulebook pairs "
           f"(5^3 stem, 3^3 levels) {pairs}")
     voxel.capacity_dropped_points(reset=True)
-    with torch.inference_mode():
-        out = tester.forward(batch)["seg_logits"].cpu()
-        cpu = cpu_model(cpu_batch)["seg_logits"]
+    classes = {}
+    for condition in conditions:
+        named = {} if condition is None else {"condition_name": condition}
+        with torch.inference_mode():
+            out = tester.forward(dict(batch, **named))["seg_logits"].cpu()
+            cpu = cpu_model(dict(cpu_batch, **named))["seg_logits"]
+        lmax = float(cpu.abs().max())
+        lerr = float((out - cpu).abs().max())
+        print(f"  fragment logits{'' if condition is None else ' under ' + condition}, card "
+              f"against CPU: err {lerr:.3e} (max |logit| {lmax:.3e}), {out.shape[-1]} classes")
+        expect(lerr <= tol * lmax,
+               f"{name} logits on the card within {tol} x max |logit| of the CPU's")
+        classes[condition] = out.shape[-1]
     dropped = voxel.capacity_dropped_points(reset=True)
-    lmax = float(cpu.abs().max())
-    lerr = float((out - cpu).abs().max())
-    print(f"  fragment logits, card against CPU: err {lerr:.3e} (max |logit| "
-          f"{lmax:.3e}); dropped {dropped}")
-    expect(lerr <= tol * lmax,
-           f"{name} logits on the card within {tol} x max |logit| of the CPU's")
-    expect(dropped == 0, "no point dropped by the level capacities in the fragment")
+    expect(dropped == 0, f"{dropped} points dropped by the level capacities in the fragment")
+    return classes
 
 
 def profile_train_step(work, data_root, batch_size, config=SPUNET_CONFIG, name="SpUNet"):
@@ -3110,6 +3314,459 @@ def run_ptv3_slice(work, data_root):
     return serving, step
 
 
+# ---------------------------------------------------------------------------
+# phase 15: Point Prompt Training (no kernel of its own: PPT's context and
+# cosine head are plain PyTorch over phase 13's SpUNet-v1m3 and phase 14's
+# PT-v3)
+
+PPT_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-ppt-v1m1-0-s3-sc-st-spunet.py")
+PPT_V3_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v3m1-1-ppt-extreme.py")
+PPT_V1M2_CONFIG = os.path.join(ROOT, "configs", "semantic_kitti",
+                               "semseg-ppt-v1m2-0-sk-nu-wa-spunet.py")
+PPT_TRAIN_BATCHES = (12, 6, 3, 2, 1)   # the shipped 12 first
+PPT_V3_BATCHES = (24, 12, 6, 2, 1)     # the shipped 24 first
+PPT_DISTINCT_ROOMS = 4                 # rooms a layout; a split links them over
+# the dataset a batch came from (its sub-loader's) and the condition its
+# samples must carry
+PPT_SOURCES = {"Structured3DDataset": "Structured3D", "ScanNetDataset": "ScanNet",
+               "S3DISDataset": "S3DIS"}
+# S3DIS's 13 classes in ScanNet's 20 and Structured3D's 25, by PPT's class
+# names (-1 where ScanNet has no such class)
+S3DIS_TO_SCANNET = np.array([-1, 1, 0, -1, -1, 8, 7, 6, 4, 5, 9, 10, 19])
+S3DIS_TO_STRUCTURED3D = np.array([16, 1, 0, 22, 22, 8, 7, 6, 4, 5, 11, 9, 24])
+
+
+def ppt_rooms(work):
+    """Phase 15's scenes under ``work/ppt``: phase 14's rooms (``PTV3_ROOM``;
+    made here when phase 14 has not run) in the three layouts of the PPT
+    configs, ``PPT_DISTINCT_ROOMS`` of them relabelled into Structured3D's
+    (``structured3d/rooms``) and ScanNet's (``scannet/rooms``, as
+    ``semantic_gt20``) class spaces, and the S3DIS val area; the splits a
+    batch size takes are links (``ppt_splits``).  Returns the root."""
+    s3dis_root = os.path.join(work, "s3dis_train_ptv3")
+    if not os.path.isdir(s3dis_root):
+        s3dis_root, _ = make_train_rooms(work, "s3dis_train_ptv3", **PTV3_ROOM)
+    root = os.path.join(work, "ppt")
+    rooms = sorted(glob.glob(os.path.join(s3dis_root, "Area_[1-46]", "*.npz")))
+    for sub in ("structured3d/rooms", "scannet/rooms", "s3dis/rooms"):
+        os.makedirs(os.path.join(root, sub))
+    os.symlink(os.path.join(s3dis_root, "Area_5"), os.path.join(root, "s3dis", "Area_5"))
+    for i, path in enumerate(rooms[:PPT_DISTINCT_ROOMS]):
+        room = dict(np.load(path))
+        label = room.pop("semantic_gt")
+        np.savez(os.path.join(root, "structured3d", "rooms", f"{i}.npz"),
+                 semantic_gt=S3DIS_TO_STRUCTURED3D[label], **room)
+        np.savez(os.path.join(root, "scannet", "rooms", f"{i}.npz"),
+                 semantic_gt20=S3DIS_TO_SCANNET[label], **room)
+        os.symlink(path, os.path.join(root, "s3dis", "rooms", f"{i}.npz"))
+    return root
+
+
+def ppt_splits(root, batch_size):
+    """The train splits of one batch size: 2 b Structured3D scenes
+    (``train_b<b>/scene_<j>/room_0.npz``), b ScanNet scenes and b S3DIS rooms,
+    linked over the distinct rooms: an epoch of four steps at the datasets'
+    ratios 2 : 1 : 1.  Returns each dataset's (data root, split)."""
+    split = f"train_b{batch_size}"
+    layouts = (("structured3d", 2 * batch_size, "scene_{j:05d}/room_0.npz"),
+               ("scannet", batch_size, "scene{j:04d}_00.npz"),
+               ("s3dis", batch_size, "office_{j}.npz"))
+    for sub, count, name in layouts:
+        base = os.path.join(root, sub, split)
+        if os.path.isdir(base):
+            continue
+        for j in range(count):
+            link = os.path.join(base, name.format(j=j))
+            os.makedirs(os.path.dirname(link), exist_ok=True)
+            os.symlink(os.path.join(root, sub, "rooms", f"{j % PPT_DISTINCT_ROOMS}.npz"),
+                       link)
+    return [(os.path.join(root, sub), split if sub != "s3dis" else (split,))
+            for sub, _, _ in layouts]
+
+
+def ppt_test_data(data_root):
+    """A ``data.test`` for the S3DIS PPT configs, which ship none: fragment
+    voting over the Area_5 rooms at the configs' 2 cm grid, each fragment
+    under condition ``S3DIS`` (``Add`` in the post-transform)."""
+    return dict(
+        type="S3DISDataset", split="Area_5", data_root=data_root, test_mode=True,
+        transform=[dict(type="CenterShift", apply_z=True), dict(type="NormalizeColor")],
+        test_cfg=dict(
+            voxelize=dict(type="GridSample", grid_size=0.02, hash_type="fnv", mode="test",
+                          keys=("coord", "color"), return_grid_coord=True),
+            crop=None,
+            post_transform=[
+                dict(type="CenterShift", apply_z=False),
+                dict(type="Add", keys_dict={"condition": "S3DIS"}),
+                dict(type="ToTensor"),
+                dict(type="Collect", keys=("coord", "grid_coord", "index", "condition"),
+                     feat_keys=("coord", "color")),
+            ],
+            aug_transform=[[dict(type="RandomScale", scale=[1, 1])]],
+        ))
+
+
+def ppt_config(work, root, batch_size, base=PPT_CONFIG, name="ppt"):
+    """``base`` (a shipped S3DIS PPT config) over phase 15's scenes at
+    ``batch_size``: its three train datasets on ``ppt_splits``, its val on
+    the S3DIS val area, and a ``data.test`` (``ppt_test_data``), as
+    ``incr_test_config`` adds one.  Returns the config's path."""
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    data = Config.fromfile(base).to_dict()["data"]
+    datasets = data["train"]["datasets"]
+    for dataset, (data_root, split) in zip(datasets, ppt_splits(root, batch_size)):
+        dataset.update(data_root=data_root, split=split)
+    s3dis = os.path.join(root, "s3dis")
+    path = os.path.join(work, f"{name}_b{batch_size}.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{base!r}]\nbatch_size = {batch_size}\n"
+                f"data = dict(train=dict(datasets={datasets!r}), "
+                f"val=dict(data_root={s3dis!r}), test={ppt_test_data(s3dis)!r})\n")
+    return path
+
+
+@contextlib.contextmanager
+def recorded_ppt_steps():
+    """Within: every collated batch tagged with its dataset's class
+    (``source``), and each ``MultiDatasetTrainer`` step's (condition,
+    source) and each evaluator forward's condition recorded."""
+    from pointcloudpdf_tpu_torch.datasets import loader
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    trainer_cls = TRAINERS.get("MultiDatasetTrainer")
+    prepare, run_step, eval_step = (loader.DataLoader._prepare, trainer_cls.run_step,
+                                    trainer_cls.eval_step)
+    seen = dict(steps=[], evals=[])
+
+    def tagged(self, batch_idx):
+        out = prepare(self, batch_idx)
+        out["source"] = type(self.dataset).__name__
+        return out
+
+    def recording_step(self):
+        run_step(self)
+        seen["steps"].append((self.comm_info["condition"],
+                              self.comm_info["input_dict"]["source"]))
+
+    def recording_eval(self, batch):
+        seen["evals"].append(batch.get("condition_name"))
+        return eval_step(self, batch)
+
+    loader.DataLoader._prepare = tagged
+    trainer_cls.run_step, trainer_cls.eval_step = recording_step, recording_eval
+    try:
+        yield seen
+    finally:
+        loader.DataLoader._prepare = prepare
+        trainer_cls.run_step, trainer_cls.eval_step = run_step, eval_step
+
+
+def ppt_fragment_check(tester):
+    """The val room's largest fragment (under ``S3DIS``): its voxel maps on
+    the card equal the CPU's bit for bit, its logits under each of the
+    three conditions within ``TOL_SPUNET_LOGITS`` of the port's CPU
+    forward, nothing dropped; its forward's ms on the card."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
+
+    tester.load_weights()
+    fragments = tester.test_dataset[0]["fragment_list"]
+    fragment = max(fragments, key=lambda f: len(f["coord"]))
+    batch = tester.device_batch(padded_collate_fn([fragment]))
+    expect(batch["condition_name"] == "S3DIS", "the test fragments carry S3DIS")
+    print(f"  largest fragment {int(batch['mask'].sum())} points (bucket "
+          f"{batch['mask'].shape[1]}) of {len(fragments)}")
+    classes = check_fragment_maps(tester, fragment, batch, name="PPT",
+                                  conditions=tester.model.conditions)
+    expect(list(classes.values()) == [25, 20, 13],
+           "25 / 20 / 13 classes under Structured3D / ScanNet / S3DIS")
+
+    def forward():
+        with torch.inference_mode():
+            tester.forward(batch)
+
+    return dict(ms=cuda_ms(forward, 3), points=int(batch["mask"].sum()),
+                bucket=int(batch["mask"].shape[1]), fragments=len(fragments))
+
+
+def ppt_step_profile(work, config):
+    """One Structured3D batch of the trained config's loader: its train step
+    by CUDA events (three after a warm-up), its peak memory, its
+    ``indexing_backward_kernel`` share, and one step's loss under autocast
+    against f32."""
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from _profile_torch import profile_call
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    cfg = default_config_parser(config, {
+        "save_path": os.path.join(work, "exp_ppt_profile"), "device": DEVICE,
+        "num_worker": 4, "evaluate": False, "hooks": [], "seed": SEED})
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="MultiDatasetTrainer", cfg=cfg))
+    input_dict = next(iter(trainer.train_loader))
+    batch = trainer.device_batch(input_dict)
+    expect(batch["condition_name"] == "Structured3D", "the epoch opens on Structured3D")
+    trainer._dispatch_train(batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        trainer._dispatch_train(batch)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_call(lambda: trainer._dispatch_train(batch), step_ms, "PPT step", top=8)
+    share = prof["indexing_backward_ms"] / prof["device_busy_ms"]
+    losses = {}
+    for amp in (False, True):
+        trainer.cfg.enable_amp = amp
+        trainer._train_mode(True)
+        with torch.no_grad(), trainer._amp():
+            losses[amp] = float(trainer.compute_loss(
+                trainer.forward_train(trainer.model, batch), batch)[0])
+    print(f"  PPT train step, batch {list(batch['coord'].shape)} (valid points "
+          f"{input_dict['count'].tolist()}): {step_ms:.1f} ms (CUDA events), peak "
+          f"{peak:.2f} GiB; indexing_backward_kernel {prof['indexing_backward_ms']:.3f} ms, "
+          f"{share:.4f} of {prof['device_busy_ms']:.1f} ms busy; one step's loss f32 "
+          f"{losses[False]:.6f}, bfloat16 autocast {losses[True]:.6f}")
+    expect(share <= MAX_INDEXING_BACKWARD_SHARE,
+           f"indexing backward share {share:.4f} <= {MAX_INDEXING_BACKWARD_SHARE}")
+    expect(np.isfinite(losses[True])
+           and abs(losses[True] - losses[False]) <= TOL_AMP_LOGITS * abs(losses[False]),
+           f"the autocast loss finite and within {TOL_AMP_LOGITS} of the f32 loss")
+    return dict(step_ms=step_ms, peak=peak, share=share, busy_ms=prof["device_busy_ms"],
+                shape=list(batch["coord"].shape), amp_loss=losses[True],
+                f32_loss=losses[False])
+
+
+def run_ppt_training(work, root):
+    """Phase 15(a): the shipped S3DIS PPT config through the CLIs at the
+    largest batch that fits, every step's condition its batch's dataset's;
+    the tester on the checkpoint; the fragment and step checks."""
+    import re
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.test import TESTERS
+
+    for batch_size in PPT_TRAIN_BATCHES:
+        config = ppt_config(work, root, batch_size)
+        save_path = os.path.join(work, f"exp_ppt_b{batch_size}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            with recorded_ppt_steps() as seen:
+                log = run_tool("train_torch.py", [
+                    "--config-file", config, "--device", DEVICE, "--options",
+                    f"save_path={save_path}", "num_worker=4", "epoch=1", "eval_epoch=1",
+                    f"seed={SEED}"])
+        except torch.cuda.OutOfMemoryError:
+            print(f"  batch size {batch_size} does not fit the card's memory")
+        else:
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            break
+        # the failed run's tensors are free once its traceback is gone
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise SmokeFailure("no batch size fits the card's memory")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = train_log_losses(log, len(seen["steps"]))["loss"]
+    print(f"  tools/train_torch.py: batch size {batch_size} (shipped 12), 1 epoch of "
+          f"{len(seen['steps'])} steps (condition, source) {seen['steps']}, {wall:.1f} s, "
+          f"peak {peak:.2f} GiB; losses {losses}; evaluator forwards under "
+          f"{sorted(set(seen['evals']))}")
+    for line in re.findall(r"Val result: [^\n]*", log):
+        print("  " + line)
+    expect([c for c, _ in seen["steps"]] == ["Structured3D", "Structured3D", "ScanNet",
+                                             "S3DIS"],
+           "one epoch at the ratios 2 : 1 : 1: Structured3D twice, ScanNet, S3DIS")
+    expect(all(PPT_SOURCES[source] == c for c, source in seen["steps"]),
+           "each step's condition is its batch's dataset's")
+    expect(all(np.isfinite(losses)), "finite losses")
+    expect("Val result: mIoU/mAcc/allAcc" in log and seen["evals"]
+           and set(seen["evals"]) == {"S3DIS"}, "the evaluator ran under S3DIS")
+    weight = os.path.join(save_path, "model", "model_last.pth")
+    test_save = os.path.join(work, "exp_ppt_test")
+    log = run_tool("test_torch.py", ["--config-file", config, "--device", DEVICE,
+                                     "--options", f"weight={weight}",
+                                     f"save_path={test_save}"])
+    pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
+    n_val = len(np.load(os.path.join(root, "s3dis", "Area_5", "office_1.npz"))["coord"])
+    expect("Val result: mIoU/mAcc/allAcc" in log and pred.shape == (n_val,)
+           and pred.max() < 13, f"tools/test_torch.py tested the checkpoint under S3DIS: "
+                                f"pred of {n_val} points in S3DIS's 13 classes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = default_config_parser(config, {"weight": weight, "device": DEVICE,
+                                         "save_path": os.path.join(work, "exp_ppt_frag")})
+    tester = TESTERS.build(dict(type="SemSegTester", cfg=cfg))
+    serving = ppt_fragment_check(tester)
+    del tester
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = ppt_step_profile(work, config)
+    step.update(batch_size=batch_size, train_peak=peak, train_wall=wall, serving=serving)
+    return step
+
+
+def run_ppt_v3_step(work, root):
+    """Phase 15(b): one ``MultiDatasetTrainer`` step (a Structured3D batch)
+    and one eval forward (the S3DIS val room) of the shipped S3DIS
+    PPT-extreme config at the largest batch of ``PPT_V3_BATCHES`` that
+    fits."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.datasets import build_dataset, padded_collate_fn
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+    config = ppt_config(work, root, PPT_V3_BATCHES[0], PPT_V3_CONFIG, "ppt_v3")
+    cfg = default_config_parser(config, {
+        "save_path": os.path.join(work, "exp_ppt_v3"), "device": DEVICE, "num_worker": 4,
+        "hooks": [], "seed": SEED})
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="MultiDatasetTrainer", cfg=cfg))
+    expect(trainer.model.backbone.pd_conditions and cfg.model.backbone.enc_patch_size[0] == 1024,
+           "PT-v3 with PD banks and patches of 1,024")
+    structured3d = build_dataset(dict(cfg.data.train.datasets[0]))
+    samples = [structured3d[i] for i in range(PPT_V3_BATCHES[0])]
+    val = trainer.device_batch(next(iter(trainer.val_loader)))
+    for batch_size in PPT_V3_BATCHES:
+        input_dict = padded_collate_fn(samples[:batch_size], mix_prob=cfg.mix_prob,
+                                       ignore_index=-1)
+        trainer.comm_info["input_dict"] = input_dict
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer.run_step()
+            loss = float(trainer.comm_info["model_output_dict"]["loss"])
+            logits = trainer.eval_step(val)["seg_logits"]
+        except torch.cuda.OutOfMemoryError:
+            print(f"  PT-v3 PPT-extreme: batch {batch_size} does not fit the card's memory")
+        else:
+            break
+        trainer.optimizer.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise SmokeFailure("no PT-v3 PPT batch fits the card's memory")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  PT-v3 PPT-extreme: a step at batch {batch_size} (shipped 24) on "
+          f"{list(input_dict['coord'].shape)} under {trainer.comm_info['condition']}, loss "
+          f"{loss:.4f}; eval forward on the val room {list(logits.shape)}; peak {peak:.2f} GiB")
+    expect(np.isfinite(loss) and bool(torch.isfinite(logits).all())
+           and logits.shape[-1] == 13, "PT-v3 PPT: finite loss, finite S3DIS logits")
+    return dict(batch_size=batch_size, peak=peak, shape=list(input_dict["coord"].shape))
+
+
+def run_ppt_v1m2_step(work, root):
+    """Phase 15(c): the SemanticKITTI PPT-v1m2 model dict (SpUNet-v1m3 at
+    full width, a head a condition) on 2 x ``CAC_POINTS`` indoor points
+    under ``SemanticKITTI`` (coordinates and a strength channel, labels
+    clipped to its 19 classes): one ``MultiDatasetTrainer`` step, the idle
+    heads moved by AdamW's decay alone (their zero gradient), and one eval
+    forward."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    outdoor = Config.fromfile(PPT_V1M2_CONFIG)
+    cfg = default_config_parser(ppt_config(work, root, 2), {
+        "save_path": os.path.join(work, "exp_ppt_v1m2"), "device": DEVICE, "num_worker": 0,
+        "hooks": [], "seed": SEED, "evaluate": False, "batch_size": 2})
+    cfg.model, cfg.optimizer, cfg.scheduler = (outdoor.model, outdoor.optimizer,
+                                               outdoor.scheduler)
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type="MultiDatasetTrainer", cfg=cfg))
+    rng = np.random.RandomState(SEED + 5)
+    paths = sorted(glob.glob(os.path.join(root, "s3dis", "rooms", "*.npz")))[:2]
+    out = {k: [] for k in ("coord", "grid_coord", "feat", "segment")}
+    for path in paths:
+        room = np.load(path)
+        grid = np.floor((room["coord"] - room["coord"].min(0)) / 0.05).astype(np.int32)
+        first = np.unique(grid, axis=0, return_index=True)[1]
+        keep = first[rng.permutation(len(first))[:CAC_POINTS]]
+        coord = room["coord"][keep]
+        strength = room["color"][keep].mean(1, keepdims=True) / 255.0
+        values = dict(coord=coord, grid_coord=grid[keep],
+                      feat=np.concatenate([coord - coord.mean(0), strength], 1),
+                      segment=np.minimum(room["semantic_gt"][keep], 18))
+        for k in out:
+            pad = [(0, CAC_BUCKET - len(coord))] + [(0, 0)] * (values[k].ndim - 1)
+            out[k].append(np.pad(values[k], pad, constant_values=-1 if k == "segment" else 0))
+    input_dict = {k: np.stack(v) for k, v in out.items()}
+    input_dict.update(coord=input_dict["coord"].astype(np.float32),
+                      feat=input_dict["feat"].astype(np.float32),
+                      segment=input_dict["segment"].astype(np.int64),
+                      count=np.full(2, CAC_POINTS, np.int32), condition=["SemanticKITTI"] * 2)
+    heads = trainer.model.seg_heads
+    idle = {n: p.detach().clone() for i in (1, 2) for n, p in heads[i].named_parameters(
+        prefix=f"seg_heads.{i}")}
+    trainer.comm_info["input_dict"] = input_dict
+    trainer.run_step()
+    loss = float(trainer.comm_info["model_output_dict"]["loss"])
+    params = dict(trainer.model.named_parameters())
+    group = next(g for g in trainer.optimizer.param_groups
+                 if any(p is params["seg_heads.1.weight"] for p in g["params"]))
+    decay = 1 - group["lr"] * group["weight_decay"]
+    gaps = {n: float((params[n].detach() - old * decay).abs().max()) for n, old in idle.items()}
+    moved = all(not torch.equal(params[n].detach(), old) for n, old in idle.items()
+                if old.abs().max() > 0)
+    logits = trainer.eval_step(trainer.device_batch(input_dict))["seg_logits"]
+    print(f"  PPT-v1m2 (SemanticKITTI model dict): step on {list(input_dict['coord'].shape)} "
+          f"loss {loss:.4f}; idle heads against p (1 - lr wd), lr {group['lr']:.3e}, wd "
+          f"{group['weight_decay']}: {gaps}; eval logits {list(logits.shape)}")
+    expect(np.isfinite(loss) and bool(torch.isfinite(logits).all())
+           and logits.shape[-1] == 19, "PPT-v1m2: finite loss, 19 SemanticKITTI classes")
+    expect(moved and max(gaps.values()) <= 1e-6,
+           "PPT-v1m2's idle heads moved by AdamW's decay alone")
+
+
+def run_ppt_slice(work):
+    """Phase 15: (a) training, evaluating and testing the shipped S3DIS PPT
+    config, (b) a PT-v3 PPT-extreme step, (c) a PPT-v1m2 step; no K1-K7
+    launch anywhere (asserted)."""
+    import torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    root = ppt_rooms(work)
+    walls = {"rooms": time.perf_counter() - t0}
+    print("  (a) tools/train_torch.py, the evaluator and tools/test_torch.py on the "
+          "shipped S3DIS PPT config at full width")
+    t0 = time.perf_counter()
+    step = run_ppt_training(work, root)
+    walls["a"] = time.perf_counter() - t0
+    print("  (b) the shipped S3DIS PT-v3 PPT-extreme config: a step and an eval forward")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    step["v3"] = run_ppt_v3_step(work, root)
+    walls["b"] = time.perf_counter() - t0
+    print("  (c) PPT-v1m2 over SpUNet-v1m3 (the SemanticKITTI model dict): a step and an "
+          "eval forward")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_ppt_v1m2_step(work, root)
+    walls["c"] = time.perf_counter() - t0
+    no_kernel_launched(read_launches(), "Point Prompt Training (phase 15)")
+    print("  phase 15 walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return step
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -3197,6 +3854,16 @@ def main() -> int:
         print("[14] PT-v3m1: serving and training the shipped S3DIS -rpe config, a "
               "step of the ScanNet config")
         ptv3_serving, ptv3 = phase("14", run_ptv3_slice, work, data_root)
+        print("[15] Point Prompt Training: training, evaluating and testing the shipped "
+              "S3DIS PPT config, a PT-v3 PPT-extreme step, a PPT-v1m2 step")
+        ppt = phase("15", run_ppt_slice, work)
+        served = ppt["serving"]
+        print(f"  {card}: PPT train step {ppt['step_ms']:.1f} ms at batch "
+              f"{ppt['batch_size']} (shipped 12), {ppt['shape']}, peak {ppt['peak']:.2f} GiB "
+              f"(training run {ppt['train_peak']:.2f}), indexing backward share "
+              f"{ppt['share']:.4f}; serving {served['ms']:.2f} ms a fragment of "
+              f"{served['points']} points (bucket {served['bucket']}); PT-v3 PPT-extreme "
+              f"batch {ppt['v3']['batch_size']} (shipped 24), peak {ppt['v3']['peak']:.2f} GiB")
         served = ptv3["serving"]
         print(f"  {card}: PT-v3 serving {served['ms']:.2f} ms a fragment of "
               f"{served['points']} points (bucket {served['bucket']}), busy "

@@ -150,6 +150,13 @@ Context-aware classifier (``CAC-v1m1``; the backbone under ``backbone.`` /
   apd_proj.0 / apd_proj.2                     apd_proj1 / apd_proj2
   feat_proj_layer.0 / .1 / .3                 feat_fc1 / feat_bn / feat_fc2
 
+Point Prompt Training (``PPT-v1m1`` / ``PPT-v1m2``; the backbone under
+``backbone.`` / ``backbone_module``, as a segmentor's, PD banks and all)
+  embedding_table.weight                      embedding_table/embedding (as is)
+  proj_head                                   proj_head                  Linear
+  class_embedding / logit_scale               class_embedding / logit_scale (as is)
+  seg_heads.{i}                               seg_head_{i}               Linear
+
 Two differences from the reference are the JAX package's and carry over as
 they are.  Its PT-v2 attention applies a second Linear to q and to k ahead of
 their BatchNorms (``q_fc1`` / ``k_fc1``, no reference counterpart: a
@@ -303,6 +310,15 @@ _CAC_RULES = [
 _ROOT_LEAVES = {"seg_head.weight": "params/proto",
                 "seg_head.bias": "params/seg_bias"}
 
+# PPT's own modules; its class table and logit scale are root leaves
+_PPT_RULES = [
+    ("embedding_table", "embedding_table", "embed"),
+    ("proj_head", "proj_head", "linear"),
+    ("seg_heads.{b}", "seg_head_{b}", "linear"),
+]
+_PPT_ROOT_LEAVES = {"class_embedding": "params/class_embedding",
+                    "logit_scale": "params/logit_scale"}
+
 # (torch module path, JAX module path, kind)
 RULES: List[Tuple[str, str, str]] = [
     ("backbone.enc{s}.0.linear", _B + "enc{s}/down/linear", "linear"),
@@ -327,6 +343,7 @@ RULES: List[Tuple[str, str, str]] = [
     *_SPUNET_RULES,
     *_PTV3_RULES,
     *_CAC_RULES,
+    *_PPT_RULES,
     *_ST_RULES,
 ]
 
@@ -351,6 +368,7 @@ _LEAVES = {
              "modulation_weight": ("params", "modulation_kernel"),
              "modulation_bias": ("params", "modulation_bias")},
     "rpe": {"rpe_table": ("params", "rpe_table")},
+    "embed": {"weight": ("params", "embedding")},
     "tables": {f"relative_pos_{n}_table": ("params", f"rel_{n}_table")
                for n in ("query", "key", "value")},
     "kpconv": {"weight": ("params", "kp_weight"),
@@ -420,7 +438,7 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     num_layers = _st_num_layers(flatten_tree(tree.get("params", {})),
                                 r"backbone_module/layer(\d+)_block", 1)
     is_st = any(_ST_ONLY.search(k) for k in flatten_tree(tree.get("params", {})))
-    root = {j: t for t, j in _ROOT_LEAVES.items()}
+    root = {j: t for t, j in (*_ROOT_LEAVES.items(), *_PPT_ROOT_LEAVES.items())}
     for coll in ("params", "batch_stats"):
         for path, value in flatten_tree(tree.get(coll, {})).items():
             if f"{coll}/{path}" in root:
@@ -537,12 +555,14 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     flat: Dict[str, np.ndarray] = {}
     num_layers = _st_num_layers(state_dict, r"backbone\.layers\.(\d+)\.", 2)
     # CAC's prototypes are its ``seg_head``; DefaultSegmentorV2's is a Linear
-    root = _ROOT_LEAVES if any(k.startswith("feat_proj_layer.") for k in state_dict) else {}
+    root = dict(_PPT_ROOT_LEAVES)
+    if any(k.startswith("feat_proj_layer.") for k in state_dict):
+        root.update(_ROOT_LEAVES)
     for key, value in _stack_pd(state_dict).items():
         if key.endswith(".num_batches_tracked"):
             continue
-        if key in root:
-            flat[root[key]] = np.ascontiguousarray(value.detach().cpu().numpy())
+        if key in root:   # np.array: a 0-d leaf (logit_scale) stays 0-d
+            flat[root[key]] = np.array(value.detach().cpu().numpy())
             continue
         for rx, jax_tmpl, kind in _TORCH_RX:
             m = rx.fullmatch(key)

@@ -4,3 +4,4 @@ from .utils import padded_collate_fn, bucket_capacity, LABEL_KEYS
 from .defaults import DefaultDataset, ConcatDataset, load_scene
 from .s3dis import S3DISDataset
 from .scannet import ScanNetDataset, ScanNet200Dataset
+from .structured3d import Structured3DDataset

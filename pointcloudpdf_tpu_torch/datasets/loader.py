@@ -1,4 +1,5 @@
-# Copied from pointcloudpdf_tpu/datasets/loader.py (Subset and DataLoader); keep in step.
+# Copied from pointcloudpdf_tpu/datasets/loader.py (Subset, DataLoader and
+# MultiDatasetDataloader); keep in step.
 """Host-side batch loader with deterministic sharding and prefetch.
 
 Replaces torch's DataLoader + DistributedSampler stack
@@ -139,3 +140,71 @@ class DataLoader:
                     out_q.get_nowait()
                 except queue.Empty:
                     break
+
+
+class MultiDatasetDataloader:
+    """Batches from one sub-dataset at a time, mixed by loop ratios.
+
+    Reference: pointcept/datasets/dataloader.py:23-112 — each sub-dataset's
+    ``loop`` is its sampling ratio (reset to 1 after reading); the overall
+    epoch length follows the main (first) dataset times the concat loop.
+    Every yielded batch carries a single dataset's samples, so the
+    per-dataset ``condition`` key stays uniform within a batch.
+
+    Over several shards every sub-loader has the same length on every
+    shard (``DataLoader`` pads a shard by wrapping), so every rank takes
+    the same sub-dataset at the same step and a sub-loader runs out on all
+    ranks at once: ``lengths`` is what a trainer compares across ranks.
+    """
+
+    def __init__(self, concat_dataset, batch_size=1, collate_fn=None,
+                 num_workers=0, seed=0, shard_id=0, num_shards=1):
+        self.datasets = concat_dataset.datasets
+        self.ratios = [int(getattr(d, "loop", 1)) for d in self.datasets]
+        for d in self.datasets:
+            d.loop = 1
+        self.datasets[0].loop = getattr(concat_dataset, "loop", 1)
+        self.loaders = [
+            DataLoader(
+                d, batch_size=batch_size, shuffle=True, drop_last=True,
+                collate_fn=collate_fn, num_workers=num_workers,
+                seed=(seed or 0) + i, shard_id=shard_id,
+                num_shards=num_shards,
+            )
+            for i, d in enumerate(self.datasets)
+        ]
+        self.batch_size = batch_size
+
+    def set_epoch(self, epoch: int):
+        for loader in self.loaders:
+            loader.set_epoch(epoch)
+
+    def lengths(self):
+        """Each sub-loader's batches an epoch on this shard."""
+        return [len(loader) for loader in self.loaders]
+
+    def __len__(self):
+        # main dataset drives the epoch; others contribute by ratio
+        main = len(self.loaders[0])
+        per_cycle = self.ratios[0]
+        cycles = max(main // max(per_cycle, 1), 1)
+        return sum(
+            min(cycles * r, len(ld)) if i else main
+            for i, (r, ld) in enumerate(zip(self.ratios, self.loaders))
+        )
+
+    def __iter__(self):
+        iters = [iter(ld) for ld in self.loaders]
+        main_remaining = len(self.loaders[0])
+        while main_remaining > 0:
+            for i, ratio in enumerate(self.ratios):
+                take = min(ratio, main_remaining) if i == 0 else ratio
+                for _ in range(take):
+                    try:
+                        yield next(iters[i])
+                    except StopIteration:
+                        if i == 0:
+                            return
+                        continue
+                    if i == 0:
+                        main_remaining -= 1

@@ -88,6 +88,21 @@ def per_rank_batch(batch_size) -> int:
     return batch_size // world
 
 
+def batch_condition(collated):
+    """The dataset condition of a collated batch (the ``condition`` strings
+    the configs' ``Add`` transform puts on each sample), or None where the
+    samples carry none.  A batch holds one condition: its samples share
+    the PD norms' bank and the PPT context."""
+    conditions = collated.get("condition")
+    if conditions is None:
+        return None
+    if isinstance(conditions, str):
+        return conditions
+    if len(set(conditions)) != 1:
+        raise ValueError(f"a batch holds one dataset condition, got {sorted(set(conditions))}")
+    return conditions[0]
+
+
 def default_setup(cfg: Config) -> Config:
     for key in ("batch_size", "batch_size_val", "batch_size_test"):
         per_rank_batch(cfg.get(key))

@@ -2,7 +2,8 @@
 
 Counterpart of ``pointcloudpdf_tpu/engines/test.py`` (``TesterBase``,
 ``SemSegTester``, ``OpenSegTester``, ``IncrSegTester``): each fragment is
-padded to its bucket, run through the model under
+padded to its bucket (its dataset ``condition``, where the test transform
+adds one, carried to the model), run through the model under
 ``torch.inference_mode()`` on ``cfg.device``, and its softmax vote / score
 scatter-mean back to full resolution happens on the host in numpy.  The
 checkpoint is the JAX package's pickled numpy tree, carried onto the
@@ -37,6 +38,7 @@ from ..utils.misc import (
     selected_mask,
 )
 from ..utils.registry import Registry
+from .defaults import batch_condition
 from .hooks.evaluator import incr_class_sets, metric_triple
 
 TESTERS = Registry("testers")
@@ -117,6 +119,9 @@ class TesterBase:
             strict=True)
 
     def device_batch(self, collated: Dict) -> Dict:
+        """A fragment's arrays on the device, its ``mask``, and its dataset
+        condition as ``condition_name`` where the test transform put one
+        on it (PD norms and PPT read it)."""
         batch = {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
             for k, v in collated.items()
@@ -126,6 +131,9 @@ class TesterBase:
             n_pad = batch["coord"].shape[1]
             batch["mask"] = (torch.arange(n_pad, device=self.device)[None, :]
                              < batch["count"][:, None])
+        condition = batch_condition(collated)
+        if condition is not None:
+            batch["condition_name"] = condition
         return batch
 
     def forward(self, batch: Dict) -> Dict:

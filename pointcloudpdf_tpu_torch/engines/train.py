@@ -1,16 +1,18 @@
 """Trainers: hook-driven epoch loops over an eager PyTorch train step.
 
 Counterpart of ``pointcloudpdf_tpu/engines/train.py`` (``TrainerBase``,
-``Trainer`` / ``DefaultTrainer``, ``OpenSegTrainer``, ``IncrSegTrainer``).
-The JAX ``TrainState`` pytree becomes the modules, a
-``torch.optim`` optimizer and a host step counter; the jitted step becomes
-forward + loss + backward + ``optimizer.step()``; the learning rate is set
-on every parameter group from the schedule before each step.  The hook
-lifecycle (before/after train/epoch/step) and the ``comm_info`` keys match
-the reference.  Drop path draws from the trainer's own generator, seeded
-at each step from ``(seed, step)`` as the JAX step folds the step into its
-dropout key, so a resumed run replays the same draws; the global RNG is
-not touched.  Checkpoints keep the JAX package's tree
+``Trainer`` / ``DefaultTrainer``, ``OpenSegTrainer``, ``IncrSegTrainer``,
+``MultiDatasetTrainer``).  The JAX ``TrainState`` pytree becomes the
+modules, a ``torch.optim`` optimizer and a host step counter; the jitted
+step becomes forward + loss + backward + ``optimizer.step()``; the learning
+rate is set on every parameter group from the schedule before each step.
+The hook lifecycle (before/after train/epoch/step) and the ``comm_info``
+keys match the reference.  After the backward every optimizer parameter the
+step did not reach takes a zero gradient (``reduce_gradients``), so the
+optimizer decays and moves it as optax moves every leaf of the JAX tree.
+Drop path draws from the trainer's own generator, seeded at each step from
+``(seed, step)`` as the JAX step folds the step into its dropout key, so a
+resumed run replays the same draws; the global RNG is not touched.  Checkpoints keep the JAX package's tree
 (``state = {params, batch_stats, opt_state, step}`` through ``bridge``), so
 either package's testers load what this trainer saves.
 
@@ -36,7 +38,7 @@ import torch
 from ..bridge import (backbone_state_dict_to_jax, jax_to_backbone_state_dict,
                       jax_to_state_dict, state_dict_to_jax)
 from ..datasets import build_dataset, padded_collate_fn
-from ..datasets.loader import DataLoader, Subset
+from ..datasets.loader import DataLoader, MultiDatasetDataloader, Subset
 from ..models import build_model
 from ..models.default import takes_generator
 from ..utils import comm
@@ -46,7 +48,7 @@ from ..utils.logger import get_root_logger
 from ..utils.optimizer import build_optimizer
 from ..utils.registry import Registry
 from ..utils.scheduler import build_scheduler
-from .defaults import default_setup, per_rank_batch
+from .defaults import batch_condition, default_setup, per_rank_batch
 from .hooks import HookBase, build_hooks
 from .test import resolve_device
 
@@ -251,11 +253,24 @@ class Trainer(TrainerBase):
             for tensor in module.state_dict().values():
                 comm.broadcast_(tensor)
 
+    def reduce_gradients(self):
+        """After the backward: every optimizer parameter the step did not
+        reach (an idle PD bank, an idle PPT head, an unused embedding) takes
+        a zero gradient, so that weight decay, momentum and Adam's moments
+        move it as the JAX step's optimizer moves every leaf; then the
+        gradients are summed over ranks."""
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        self.sum_gradients()
+
     def sum_gradients(self):
         """The gradients summed over ranks, in one flat bucket.  With every
         loss normalised by the global batch's counts the sum is the
         gradient of the global batch's loss, where DDP's mean would not
-        be.  Every rank's forward reaches the same parameters."""
+        be.  ``reduce_gradients`` has given every optimizer parameter a
+        gradient, so every rank sums the same tensors."""
         if not comm.is_distributed():
             return
         grads = [p.grad for _, p in self.named_parameters() if p.grad is not None]
@@ -332,6 +347,9 @@ class Trainer(TrainerBase):
 
     # -- the step -------------------------------------------------------------
     def device_batch(self, input_dict: Dict) -> Dict:
+        """The batch's arrays on the device, its validity ``mask``, and its
+        dataset condition as ``condition_name`` where its samples carry one
+        (PD norms and PPT read it)."""
         batch = {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(
                 self.device, non_blocking=True)
@@ -342,6 +360,9 @@ class Trainer(TrainerBase):
             n_pad = batch["coord"].shape[1]
             batch["mask"] = (torch.arange(n_pad, device=self.device)[None, :]
                              < batch["count"][:, None])
+        condition = batch_condition(input_dict)
+        if condition is not None:
+            batch["condition_name"] = condition
         return batch
 
     def _set_lr(self):
@@ -388,7 +409,7 @@ class Trainer(TrainerBase):
             out = self.forward_train(self.model, batch)
             loss, parts = self.compute_loss(out, batch)
         loss.backward()
-        self.sum_gradients()
+        self.reduce_gradients()
         self.optimizer.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
@@ -518,7 +539,7 @@ class OpenSegTrainer(Trainer):
                 parts["loss_rec"] = rec_l
             parts["loss"] = loss
         loss.backward()
-        self.sum_gradients()
+        self.reduce_gradients()
         if frozen:
             # the optimizer state of a frozen recognizer moves as in the JAX
             # step (which zeroes its updates, not its gradients): step on a
@@ -737,7 +758,7 @@ class IncrSegTrainer(Trainer):
                 student, self.teacher_logits(batch), batch["segment_incr"],
                 batch["mask"])
         loss.backward()
-        self.sum_gradients()
+        self.reduce_gradients()
         self.optimizer.step()
         return {"loss": loss.detach()}
 
@@ -748,3 +769,54 @@ class IncrSegTrainer(Trainer):
             loss = self.incr_learner.eval_loss(seg_logits,
                                                batch["segment_incr_remap"])
         return {"seg_logits": seg_logits, "loss": loss}
+
+
+@TRAINERS.register_module("MultiDatasetTrainer")
+class MultiDatasetTrainer(Trainer):
+    """Joint training over several datasets (Point Prompt Training).
+
+    Reference: pointcept/engines/train.py:296-310, the JAX
+    ``MultiDatasetTrainer``: the train loader is a ``MultiDatasetDataloader``
+    over the config's ``ConcatDataset``, whose batches each hold one
+    dataset's samples.  A batch's condition (its samples' ``condition``)
+    reaches the model as ``condition_name`` (``Trainer.device_batch``) in
+    the training, evaluator and ``PreciseEvaluator`` forwards alike.  Over
+    several ranks every rank takes the same dataset at every step (the
+    sub-loaders' lengths are checked equal once, each step's condition
+    every step), so a PD bank's statistics are summed within one condition
+    and every rank's step reaches the same parameters."""
+
+    def build_train_loader(self):
+        dataset = build_dataset(dict(self.cfg.data.train))
+        collate = functools.partial(
+            padded_collate_fn,
+            mix_prob=self.cfg.get("mix_prob", 0.0),
+            ignore_index=self.cfg.data.get("ignore_index", -1),
+        )
+        loader = MultiDatasetDataloader(
+            dataset,
+            batch_size=per_rank_batch(self.cfg.batch_size),
+            collate_fn=collate,
+            num_workers=self.cfg.get("num_worker", 4),
+            seed=self.cfg.get("seed") or 0,
+            shard_id=comm.get_rank(),
+            num_shards=comm.get_world_size(),
+        )
+        if comm.is_distributed():
+            lengths = comm.all_gather(loader.lengths())
+            if any(n != lengths[0] for n in lengths):
+                raise RuntimeError(f"sub-loader lengths differ between ranks: {lengths}")
+        return loader
+
+    def run_step(self):
+        input_dict = self.comm_info["input_dict"]
+        condition = batch_condition(input_dict)
+        if condition is None:
+            raise ValueError("MultiDatasetTrainer: the batch's samples carry no condition")
+        if comm.is_distributed():
+            conditions = comm.all_gather(condition)
+            if len(set(conditions)) != 1:
+                raise RuntimeError(f"ranks took different conditions at one step: "
+                                   f"{conditions}")
+        self.comm_info["condition"] = condition
+        super().run_step()

@@ -7,3 +7,4 @@ from . import point_transformer_v2  # registers PT-v2m2 / PT-v2m1
 from . import context_aware_classifier  # registers CAC-v1m1
 from . import sparse_unet  # registers SpUNet-v1m1/v1m2/v1m3, MinkUNet*
 from . import point_transformer_v3  # registers PT-v3m1
+from . import point_prompt_training  # registers PPT-v1m1 / PPT-v1m2

@@ -7,7 +7,8 @@ the incremental trainer one distillation step and the default trainer one
 PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step, a narrow SpUNet-v1m1
 forward and step from the shipped S3DIS config and a CAC-v1m1 step over
 it, a narrow PT-v3m1 forward and step from the shipped S3DIS ``-rpe``
-config, and ``launch`` runs a
+config, one ``MultiDatasetTrainer`` step of a narrow PPT-v1m1 from the
+shipped S3DIS PPT config, and ``launch`` runs a
 gloo group of one (the data-parallel engine's collectives).  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
@@ -272,6 +273,31 @@ assert set(v3.comm_info["model_output_dict"]) == {"loss"}
 assert np.isfinite(float(v3.comm_info["model_output_dict"]["loss"]))
 assert not torch.equal(before, v3.model.seg_head.weight)
 assert voxel.capacity_dropped_points(reset=True) == 0
+
+# the shipped S3DIS PPT config at narrow widths: one MultiDatasetTrainer
+# step of PPT-v1m1 over SpUNet-v1m3 under S3DIS (the batch's condition to
+# the model), the other banks and the embedding table moved by weight decay
+# alone (their zero gradients)
+ppt_cfg = default_config_parser(ROOT + "/configs/s3dis/semseg-ppt-v1m1-0-s3-sc-st-spunet.py")
+assert ppt_cfg.model.type == "PPT-v1m1" and ppt_cfg.train.type == "MultiDatasetTrainer"
+ppt_cfg.model.backbone.update(base_channels=8, channels=(8, 8), layers=(1, 1),
+                              context_channels=16)
+ppt_cfg.model.update(backbone_out_channels=8, context_channels=16, embed_channels=32)
+ppt_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                         "enable_amp": False, "evaluate": False, "hooks": [],
+                         "epoch": 2, "eval_epoch": 2})
+ppt_cfg.data.train = dict(type="ConcatDataset", datasets=[dict(type="NoJaxScenes")] * 3)
+ppt = TRAINERS.build(dict(type="MultiDatasetTrainer", cfg=ppt_cfg))
+idle = ppt.model.backbone.conv_input[1].bns[0].weight.detach().clone()
+ppt.comm_info["input_dict"] = dict(sp_input, condition=["S3DIS", "S3DIS"])
+ppt.run_step()
+assert set(ppt.comm_info["model_output_dict"]) == {"loss"}
+assert np.isfinite(float(ppt.comm_info["model_output_dict"]["loss"]))
+# SGD, Nesterov momentum 0.9, first step on a zero gradient: 1.9 lr wd p
+decayed = idle * (1 - 1.9 * ppt.comm_info["lr"] * ppt_cfg.optimizer.weight_decay)
+moved = ppt.model.backbone.conv_input[1].bns[0].weight.detach()
+assert not torch.equal(moved, idle) and torch.allclose(moved, decayed, rtol=0, atol=1e-7)
+assert ppt.model.embedding_table.weight.grad.abs().max() == 0
 
 from pointcloudpdf_tpu_torch.engines.launch import launch
 from pointcloudpdf_tpu_torch.utils import comm
