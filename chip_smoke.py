@@ -150,16 +150,31 @@ Phases, in order; any failure exits non-zero:
    the evaluator on the S3DIS val area under ``S3DIS``;
    ``tools/test_torch.py`` on the checkpoint through a config that adds a
    ``data.test`` under ``S3DIS``; the largest fragment's voxel maps on the
-   card equal to the CPU's and its logits under each of the three
-   conditions within ``TOL_SPUNET_LOGITS`` of the port's CPU forward, its
-   forward timed; one batch's train step timed with its peak memory, its
+   card equal to the CPU's, its logits under ``S3DIS`` within
+   ``TOL_SPUNET_LOGITS`` of the port's CPU forward and each condition's
+   head on the card, its forward timed; one batch's train step timed with its peak memory, its
    ``indexing_backward_kernel`` share and its loss under autocast against
    f32; (b) one ``MultiDatasetTrainer`` step and one eval forward of the
    shipped S3DIS PT-v3 PPT-extreme config (PD BatchNorm and LayerNorm
    banks, patches of 1,024) at the largest batch of 24, 12, 6, 2, 1 that
    fits, with its peak memory; (c) one step and one eval forward of the
    SemanticKITTI PPT-v1m2 model dict (over SpUNet-v1m3) on 2 x 8,000
-   indoor points, its idle heads moved by AdamW's decay alone.
+   indoor points, its idle heads moved by AdamW's decay alone;
+16. Swin3D and OctFormer (K1 in Swin3D's kNN pooling and interpolation,
+   no other kernel): (a) ``tools/test_torch.py`` on the shipped S3DIS
+   Swin3D-small config over phase 14's room, K1 eight times a forward, the
+   largest fragment on the kernels against the plain versions
+   (``TOL_LOGITS``) and a crop of it (``CPU_CROP``) against the port's CPU
+   forward (``TOL_WINDOW_LOGITS``), its levels' valid and held rows, one
+   forward timed and profiled; (b) ``tools/train_torch.py`` on it at full
+   width over phase 14's rooms (the largest batch of 12, 6, 3, 2, 1 that
+   fits; AdamW with the ``blocks`` group, autocast, Mix3D and drop path as
+   shipped), one epoch of two steps and the evaluator, K1 launched, then
+   one batch's step timed with its peak, idle share, levels and
+   ``indexing_backward_kernel`` share; (c) and (d) the same for the shipped
+   ScanNet OctFormer config over those rooms relabelled into ScanNet's
+   layout, its displacement projected on the normal (``octformer_config``),
+   no kernel of K1-K7 launched.
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2974,11 +2989,13 @@ def check_fragment_maps(tester, fragment, batch, name="SpUNet",
     return classes
 
 
-def profile_train_step(work, data_root, batch_size, config=SPUNET_CONFIG, name="SpUNet"):
+def profile_train_step(work, data_root, batch_size, config=SPUNET_CONFIG, name="SpUNet",
+                       report=None):
     """One batch of ``config`` (the shipped S3DIS SpUNet config) at
     ``batch_size``: the train step's ms by CUDA events (three after a
     warm-up), its peak device memory and, from ``torch.profiler``, the share
-    of its device time in PyTorch's ``indexing_backward_kernel``."""
+    of its device time in PyTorch's ``indexing_backward_kernel``;
+    ``report(model, batch)``'s dict joins the result."""
     import torch
 
     sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -3016,8 +3033,9 @@ def profile_train_step(work, data_root, batch_size, config=SPUNET_CONFIG, name="
           f"ms, {share:.4f} of {prof['device_busy_ms']:.1f} ms busy")
     expect(share <= MAX_INDEXING_BACKWARD_SHARE,
            f"indexing backward share {share:.4f} <= {MAX_INDEXING_BACKWARD_SHARE}")
-    return dict(step_ms=step_ms, peak=peak, share=share,
-                busy_ms=prof["device_busy_ms"], shape=list(batch["coord"].shape))
+    extra = {} if report is None else report(trainer.model, batch)
+    return dict(step_ms=step_ms, peak=peak, share=share, idle=prof["idle_share_unprofiled"],
+                busy_ms=prof["device_busy_ms"], shape=list(batch["coord"].shape), **extra)
 
 
 def scannet_grid_batch(trainer, data_root, rooms=2):
@@ -3464,9 +3482,11 @@ def recorded_ppt_steps():
 
 def ppt_fragment_check(tester):
     """The val room's largest fragment (under ``S3DIS``): its voxel maps on
-    the card equal the CPU's bit for bit, its logits under each of the
-    three conditions within ``TOL_SPUNET_LOGITS`` of the port's CPU
-    forward, nothing dropped; its forward's ms on the card."""
+    the card equal the CPU's bit for bit, its logits under ``S3DIS`` within
+    ``TOL_SPUNET_LOGITS`` of the port's CPU forward, nothing dropped, and
+    each condition's head on the card (one CPU forward, not three: the
+    script's time limit, since phase 16 came); its forward's ms on the
+    card."""
     import torch
 
     from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
@@ -3478,9 +3498,14 @@ def ppt_fragment_check(tester):
     expect(batch["condition_name"] == "S3DIS", "the test fragments carry S3DIS")
     print(f"  largest fragment {int(batch['mask'].sum())} points (bucket "
           f"{batch['mask'].shape[1]}) of {len(fragments)}")
-    classes = check_fragment_maps(tester, fragment, batch, name="PPT",
-                                  conditions=tester.model.conditions)
-    expect(list(classes.values()) == [25, 20, 13],
+    classes = check_fragment_maps(tester, fragment, batch, name="PPT", conditions=("S3DIS",))
+    with torch.inference_mode():
+        for condition in tester.model.conditions:
+            if condition not in classes:
+                out = tester.forward(dict(batch, condition_name=condition))["seg_logits"]
+                expect(bool(torch.isfinite(out).all()), f"finite logits under {condition}")
+                classes[condition] = out.shape[-1]
+    expect([classes[c] for c in tester.model.conditions] == [25, 20, 13],
            "25 / 20 / 13 classes under Structured3D / ScanNet / S3DIS")
 
     def forward():
@@ -3767,6 +3792,272 @@ def run_ppt_slice(work):
     return step
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the window-attention backbones.  Swin3D's kNN pooling and
+# interpolation launch K1; its cRSE attention and OctFormer are plain
+# PyTorch (no Pallas kernel sits under either in the JAX package)
+
+SWIN3D_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-swin3d-v1m1-0-small.py")
+OCTFORMER_CONFIG = os.path.join(ROOT, "configs", "scannet",
+                                "semseg-octformer-v1m1-0-base.py")
+WINDOW_TRAIN_BATCHES = PTV2_TRAIN_BATCHES  # the shipped 12, its halves, 2 and 1
+# launches of one Swin3D forward (five layers): K1 once a downsample and once
+# an interpolation
+SWIN3D_PER_FORWARD = {"knn": 4 + 4}
+# a fragment's logits, card against CPU, of max |logit|: f32 on both (TF32
+# off), the same kNN sets, 23 (Swin3D) or 24 (OctFormer) attention blocks
+# summed in other orders
+TOL_WINDOW_LOGITS = 1e-4
+# the share of a fragment the CPU forward takes (a spatial crop: the full
+# fragment's CPU forward at full width would take minutes)
+CPU_CROP = 0.1
+
+
+def crop_fragment(fragment, share):
+    """The points of a test fragment (a dict of per-point arrays) below the
+    ``share`` quantile of x: a fragment of its own, smaller."""
+    x = fragment["coord"][:, 0]
+    keep = x <= np.quantile(x, share)
+    n = len(x)
+    return {k: v[keep] if isinstance(v, np.ndarray) and len(v) == n else v
+            for k, v in fragment.items()}
+
+
+def window_levels(model, batch):
+    """Each level's valid rows (the batch's largest count) and held rows."""
+    import torch
+
+    backbone = model.backbone
+    with torch.inference_mode():
+        if hasattr(backbone, "levels"):
+            masks = [lv.mask for lv in backbone.levels(batch)]
+        else:
+            masks = backbone.index_maps(batch["grid_coord"], batch["mask"])["mask"]
+    return dict(valid_rows=[int(m.sum(1).max()) for m in masks],
+                held_rows=[int(m.shape[1]) for m in masks])
+
+
+def window_fragment_check(tester, fragment, batch):
+    """A Swin3D or OctFormer test fragment: its levels' valid and held rows,
+    the card's logits within ``TOL_WINDOW_LOGITS`` of the port's CPU forward
+    on a crop of it (``CPU_CROP``), its forward timed and profiled."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from _profile_torch import profile_call
+
+    from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
+
+    levels = window_levels(tester.model, batch)
+    print(f"  levels: valid rows {levels['valid_rows']}, held {levels['held_rows']}")
+    crop = tester.device_batch(padded_collate_fn([crop_fragment(fragment, CPU_CROP)]))
+    cpu_model = copy.deepcopy(tester.model).cpu()
+    cpu_batch = {k: v.cpu() if torch.is_tensor(v) else v for k, v in crop.items()}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = tester.forward(crop)["seg_logits"].cpu()
+        cpu = cpu_model(cpu_batch)["seg_logits"]
+    lmax, lerr = float(cpu.abs().max()), float((out - cpu).abs().max())
+    print(f"  crop of {int(crop['mask'].sum())} points, card against CPU: logits err "
+          f"{lerr:.3e} (max |logit| {lmax:.3e}; {time.perf_counter() - t0:.1f} s)")
+    expect(lerr <= TOL_WINDOW_LOGITS * lmax,
+           f"logits on the card within {TOL_WINDOW_LOGITS} x max |logit| of the CPU's")
+    del cpu_model
+
+    def forward():
+        with torch.inference_mode():
+            tester.forward(batch)
+
+    ms = cuda_ms(forward, 3)
+    prof = profile_call(forward, ms, "fragment forward", top=8)
+    window_fragment_check.result = dict(
+        ms=ms, points=int(batch["mask"].sum()), bucket=int(batch["mask"].shape[1]),
+        busy_ms=prof["device_busy_ms"], idle=prof["idle_share_unprofiled"],
+        cpu_err=lerr / lmax, **levels)
+
+
+def octformer_config(work):
+    """The shipped ScanNet OctFormer config with ``project_displacement=True``
+    on its three ``GridSample``s: as shipped they return a 3-wide
+    displacement, so the features (colour, normal, coordinates,
+    displacement) are 12 wide for a model of ``in_channels=10``, in both
+    packages (ROADMAP §3); projected on the normal it is 1 wide.  Returns
+    the derived config's path."""
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    data = Config.fromfile(OCTFORMER_CONFIG).to_dict()["data"]
+    samples = [t for t in (*data["train"]["transform"], *data["val"]["transform"],
+                           data["test"]["test_cfg"]["voxelize"]) if t["type"] == "GridSample"]
+    expect(len(samples) == 3 and all(t.get("return_displacement") for t in samples),
+           "the OctFormer config's three GridSamples return the displacement")
+    for t in samples:
+        t["project_displacement"] = True
+    path = os.path.join(work, "octformer_projected.py")
+    with open(path, "w") as f:
+        f.write(f"_base_ = [{OCTFORMER_CONFIG!r}]\n"
+                f"data = dict(train=dict(transform={data['train']['transform']!r}), "
+                f"val=dict(transform={data['val']['transform']!r}), "
+                f"test=dict(test_cfg=dict(voxelize={data['test']['test_cfg']['voxelize']!r})))\n")
+    return path
+
+
+def scannet_layout(work, normals_root):
+    """Phase 14's rooms (with normals) relabelled into ScanNet's 20 classes
+    under ``work/scannet_oct``: train splits ``Batch{b}`` of 2 b scenes
+    (links over the train rooms) and the val room as ``val``.  Returns the
+    root and the val room's points."""
+    root = os.path.join(work, "scannet_oct")
+    rooms = sorted(glob.glob(os.path.join(normals_root, "Area_[1-46]", "*.npz")))
+    os.makedirs(os.path.join(root, "rooms"))
+    os.makedirs(os.path.join(root, "val"))
+    for i, path in enumerate([*rooms, os.path.join(normals_root, "Area_5", "office_1.npz")]):
+        room = dict(np.load(path))
+        label = room.pop("semantic_gt")
+        name = (os.path.join("rooms", f"{i}.npz") if i < len(rooms)
+                else os.path.join("val", "scene0000_00.npz"))
+        np.savez(os.path.join(root, name), semantic_gt20=S3DIS_TO_SCANNET[label], **room)
+    for b in WINDOW_TRAIN_BATCHES:
+        split = os.path.join(root, f"Batch{b}")
+        os.makedirs(split)
+        for j in range(2 * b):
+            os.symlink(os.path.join(root, "rooms", f"{j % len(rooms)}.npz"),
+                       os.path.join(split, f"scene{j:04d}_00.npz"))
+    return root, len(room["coord"])
+
+
+def serve_octformer(work, config, root, n_val):
+    """Phase 16(c): ``tools/test_torch.py`` on the ScanNet OctFormer config
+    (``octformer_config``) over the val scene, seeded random weights through
+    the bridge; no kernel launched; the fragment check."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
+    from pointcloudpdf_tpu_torch.engines.test import TESTERS
+    from pointcloudpdf_tpu_torch.models import build_model
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(config)
+    torch.manual_seed(SEED)
+    weight = os.path.join(work, "model_octformer.pth")
+    random_jax_checkpoint(weight, build_model(dict(cfg.model)))
+    save_path = os.path.join(work, "exp_octformer")
+    reset_launches()
+    t0 = time.perf_counter()
+    log = run_tool("test_torch.py", [
+        "--config-file", config, "--device", DEVICE, "--options",
+        f"data_root={root}", f"weight={weight}", f"save_path={save_path}",
+        f"data.test.data_root={root}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    no_kernel_launched(read_launches(), "OctFormer serving")
+    forwards = log.count(", Batch: ")
+    pred = np.load(glob.glob(os.path.join(save_path, "result", "*_pred.npy"))[0])
+    expect("Val result: mIoU/mAcc/allAcc" in log and pred.shape == (n_val,)
+           and pred.min() >= 0 and pred.max() < 20,
+           f"pred covers all {n_val} points, in [0, 20)")
+    cfg.merge_from_dict({"data_root": root, "weight": weight, "device": DEVICE,
+                         "save_path": os.path.join(work, "exp_octformer_check"),
+                         "data.test.data_root": root})
+    tester = TESTERS.build(dict(type="SemSegTester", cfg=cfg))
+    tester.load_weights()
+    fragments = tester.test_dataset[0]["fragment_list"]
+    fragment = max(fragments, key=lambda f: len(f["coord"]))
+    print(f"  tools/test_torch.py: {wall:.1f} s, {forwards} forwards; {len(fragments)} "
+          f"fragments of up to {len(fragment['coord'])} points")
+    window_fragment_check(tester, fragment, tester.device_batch(padded_collate_fn([fragment])))
+    return dict(window_fragment_check.result, fragments=len(fragments), wall=wall)
+
+
+def train_window_model(work, config, name, data_root, test_root):
+    """``tools/train_torch.py`` on ``config`` at full width at the largest
+    batch of ``WINDOW_TRAIN_BATCHES`` that fits (one epoch of two steps and
+    the evaluator; autocast, Mix3D and drop path as shipped), then one
+    batch's step profiled with its levels' rows.  Returns (launches, step)."""
+    import re
+
+    import torch
+
+    log, batch_size, iters, wall, launches, peak, _ = train_with_fallback(
+        work, config, name, data_root, 1, [f"data.test.data_root={test_root}"],
+        subsample=False, sizes=WINDOW_TRAIN_BATCHES, areas=lambda b: (f"Batch{b}",))
+    losses = train_log_losses(log, iters)["loss"]
+    print(f"  losses {losses}")
+    for line in re.findall(r"Val result: [^\n]*", log):
+        print("  " + line)
+    expect(all(np.isfinite(losses)), "finite losses")
+    expect("Val result: mIoU/mAcc/allAcc" in log, "the evaluator ran")
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = profile_train_step(work, data_root, batch_size, config, name, report=window_levels)
+    print(f"  {name} step levels: valid rows {step['valid_rows']}, held {step['held_rows']}")
+    step.update(batch_size=batch_size, train_peak=peak, train_wall=wall)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, step
+
+
+def run_window_slice(work):
+    """Phase 16: (a) serving and (b) training the shipped S3DIS Swin3D-small
+    config, (c) serving and (d) training the shipped ScanNet OctFormer
+    config, over phase 14's rooms (made here when phase 14 has not run)."""
+    import torch
+
+    walls = {}
+    t0 = time.perf_counter()
+    normals_root = os.path.join(work, "s3dis_train_ptv3")
+    if os.path.isdir(normals_root):
+        n_val = int(len(np.load(os.path.join(normals_root, "Area_5", "office_1.npz"))["coord"]))
+    else:
+        normals_root, n_val = make_train_rooms(work, "s3dis_train_ptv3", **PTV3_ROOM)
+    split_root = two_batch_splits(work, normals_root, "s3dis_two_batches_normals")
+    scannet_root, n_scannet = scannet_layout(work, normals_root)
+    walls["rooms"] = time.perf_counter() - t0
+
+    print("  (a) tools/test_torch.py on the shipped S3DIS Swin3D-small config")
+    t0 = time.perf_counter()
+    serving = run_slice(work, SWIN3D_CONFIG, "swin3d", SWIN3D_PER_FORWARD,
+                        fragment_check=window_fragment_check, room=PTV3_ROOM)
+    swin_fragment = window_fragment_check.result
+    expect(serving["knn"] > 0, f"K1 launched {serving['knn']} times serving Swin3D")
+    walls["a"] = time.perf_counter() - t0
+
+    print("  (b) tools/train_torch.py on it at full width (phase 14's rooms)")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches, swin_step = train_window_model(
+        work, SWIN3D_CONFIG, "Swin3D", split_root, normals_root)
+    n_train = sum(train_launches[k] for k in ("knn_pruned", "knn_brute"))
+    expect(n_train > 0, f"K1 launched {n_train} times training Swin3D")
+    for key, n in train_launches.items():
+        if key not in ("knn", "knn_pruned", "knn_brute", "gva_by_width"):
+            expect(not (sum(n) if isinstance(n, tuple) else n),
+                   f"Swin3D training launched no {key} kernel")
+    walls["b"] = time.perf_counter() - t0
+
+    print("  (c) tools/test_torch.py on the shipped ScanNet OctFormer config, its "
+          "displacement projected on the normal")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    oct_config = octformer_config(work)
+    oct_serving = serve_octformer(work, oct_config, scannet_root, n_scannet)
+    walls["c"] = time.perf_counter() - t0
+
+    print("  (d) tools/train_torch.py on it at full width (ScanNet's layout)")
+    t0 = time.perf_counter()
+    oct_launches, oct_step = train_window_model(
+        work, oct_config, "OctFormer", scannet_root, scannet_root)
+    no_kernel_launched(oct_launches, "OctFormer training and its evaluator")
+    walls["d"] = time.perf_counter() - t0
+    print("  phase 16 walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return (serving, {k: train_launches[k] for k in ("knn_pruned", "knn_brute")},
+            dict(swin3d=dict(swin_step, serving=swin_fragment),
+                 octformer=dict(oct_step, serving=oct_serving)))
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -3857,6 +4148,20 @@ def main() -> int:
         print("[15] Point Prompt Training: training, evaluating and testing the shipped "
               "S3DIS PPT config, a PT-v3 PPT-extreme step, a PPT-v1m2 step")
         ppt = phase("15", run_ppt_slice, work)
+        print("[16] Swin3D and OctFormer: serving and training the shipped S3DIS "
+              "Swin3D-small and ScanNet OctFormer configs")
+        swin_serving, swin_train, window = phase("16", run_window_slice, work)
+        for name, step in window.items():
+            served = step["serving"]
+            print(f"  {card}: {name} serving {served['ms']:.2f} ms a fragment of "
+                  f"{served['points']} points (bucket {served['bucket']}), busy "
+                  f"{served['busy_ms']:.2f} ms, idle {served['idle']:.3f}, levels valid "
+                  f"{served['valid_rows']} held {served['held_rows']}; train step "
+                  f"{step['step_ms']:.1f} ms at batch {step['batch_size']} (shipped 12), "
+                  f"{step['shape']}, peak {step['peak']:.2f} GiB (training run "
+                  f"{step['train_peak']:.2f}), idle {step['idle']:.3f}, levels valid "
+                  f"{step['valid_rows']} held {step['held_rows']}, indexing backward "
+                  f"share {step['share']:.4f}")
         served = ppt["serving"]
         print(f"  {card}: PPT train step {ppt['step_ms']:.1f} ms at batch "
               f"{ppt['batch_size']} (shipped 12), {ppt['shape']}, peak {ppt['peak']:.2f} GiB "
@@ -3889,7 +4194,12 @@ def main() -> int:
           f"{ptv2_batch} ({ptv2_peak:.2f} GiB)")
 
     main_runs = (launches, serving, st_serving, ptv2_serving, st_train, incr_train,
-                 ptv2_train, ddp_train)
+                 ptv2_train, ddp_train, swin_serving, swin_train)
+    n = sum(run[key] for run in (swin_serving, swin_train)
+            for key in ("knn_pruned", "knn_brute"))
+    expect(swin_serving["knn"] > 0 and n > swin_serving["knn"],
+           f"K1 launched on the Swin3D path: {swin_serving['knn']} serving, "
+           f"{n - swin_serving['knn']} training")
     for key in ("knn_pruned", "knn_brute"):
         n = sum(run[key] for run in main_runs)
         expect(n > 0, f"{key} kernel launched {n} times over the main-path runs")
@@ -3931,7 +4241,10 @@ def main() -> int:
         # training slice: its training, evaluator and tester forwards; the
         # CAC step beside it is not counted), launches_pt_serving,
         # launches_st_serving and launches_ptv2_serving (launches_serving:
-        # the three serving slices), launches_ddp_train (phase 12(a): both
+        # the three serving slices; launches_serving adds
+        # launches_swin3d_serving, phase 16(a)), launches_swin3d_train
+        # (phase 16(b): Swin3D's training, evaluator and tester forwards),
+        # launches_ddp_train (phase 12(a): both
         # ranks' counts, each set to 0 just before its steps; the
         # one-process reference beside them is not counted); library_ms: no
         # single PyTorch call
@@ -3945,10 +4258,11 @@ def main() -> int:
                       ddp_train[key]))
         n_pt, n_st = serving.get(key, 0), st_serving.get(key, 0)
         n_v2 = ptv2_serving.get(key, 0)
+        n_swin, n_swin_train = swin_serving.get(key, 0), swin_train.get(key, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": (n_train + n_pt + n_st + n_v2 + n_st_train
-                                     + n_incr + n_v2_train + n_ddp),
+                                     + n_incr + n_v2_train + n_ddp + n_swin + n_swin_train),
                         "launches_train": n_train,
                         "launches_st_train": n_st_train,
                         "launches_incr_train": n_incr,
@@ -3957,7 +4271,9 @@ def main() -> int:
                         "launches_pt_serving": n_pt,
                         "launches_st_serving": n_st,
                         "launches_ptv2_serving": n_v2,
-                        "launches_serving": n_pt + n_st + n_v2,
+                        "launches_swin3d_serving": n_swin,
+                        "launches_swin3d_train": n_swin_train,
+                        "launches_serving": n_pt + n_st + n_v2 + n_swin,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,

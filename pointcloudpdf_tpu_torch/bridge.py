@@ -27,6 +27,8 @@ KPConv ``weight``           ``params/<p>/kp_weight`` (P, C_in, C_mid), as is
 KPConv ``K_points`` buffer  ``batch_stats/<p>/kp_points`` (P, 3)
 sparse conv ``weight``      ``params/<p>/kernel`` (K, C_in, C_out), as is
 RPE ``rpe_table``           ``params/<p>/rpe_table`` (3 rpe_num, H), as is
+cRSE ``<side>_<g>_table``   ``params/<p>/<side>_<g>_table`` (3, 2L, H, hd), as is
+depthwise conv ``weight``   ``params/<p>/kernel`` (K, C), as is
 ==========================  ======================================
 
 Module map (``{s}`` a stage digit, ``{st}`` enc or dec, torch block
@@ -156,6 +158,49 @@ Point Prompt Training (``PPT-v1m1`` / ``PPT-v1m2``; the backbone under
   proj_head                                   proj_head                  Linear
   class_embedding / logit_scale               class_embedding / logit_scale (as is)
   seg_heads.{i}                               seg_head_{i}               Linear
+
+Swin3D (``Swin3D-v1m1`` under ``DefaultSegmentor``; Pointcept
+``swin3d_v1m1_base.py`` / ``swin3d_layers.py`` names; ``{l}`` a torch layer,
+JAX ``layer{l + s}`` with ``s`` 0, or 1 where the stem downsamples
+(``stem_down`` in the tree, ``downsample`` in the state_dict); ``{u}`` an
+upsample, JAX ``up{L - 1 - u}`` of ``L`` layers)
+  backbone.stem_layer.conv / .norm            stem_conv / stem_bn
+  backbone.stem_layer.0.conv / .0.norm        stem_conv / stem_bn   (stem_transformer=False)
+  backbone.stem_layer.1.conv1|bn1|conv2|bn2   stem_res/conv1|bn1|conv2|bn2
+  backbone.downsample.norm / .linear          stem_down/norm / linear
+  backbone.layers.{l}.blocks.{d}.             layer{i}_block{d}/
+  backbone.layers.{l}.downsample.norm|linear  down{i}/norm|linear
+  backbone.upsamples.{u}.linear1.0 / .1       up{w}/norm1 / linear1
+  backbone.upsamples.{u}.linear2.0 / .1       up{w}/norm2 / linear2
+  backbone.upsamples.{u}.block.blocks.0.      up{w}_attn/
+  backbone.classifier.0 / .1 / .3             cls_fc1 / cls_bn / cls_fc2
+  in a block:
+  norm1 / norm2 / attn.qkv / attn.proj        norm1 / norm2 / attn/qkv / attn/proj
+  attn.<side>_<g>_table                       attn/<side>_<g>_table
+  mlp.fc1 / mlp.fc2                           mlp_fc1 / mlp_fc2
+The stem follows the reference's ``stem_layer`` and its ``conv`` / ``norm``
+as far as they can be known here (the reference's stem modules are not at
+hand to check); its residual block keeps the JAX package's (SpUNet's)
+``conv1`` / ``bn1`` / ``conv2`` / ``bn2``.
+
+OctFormer (``OctFormer-v1m1`` under ``DefaultSegmentor``; Pointcept
+``octformer_v1m1_base.py`` names)
+  backbone.patch_embed.convs.{s}.conv / .bn         stem_conv{s}/conv / bn
+  backbone.patch_embed.downsamples.{s}.conv / .bn   stem_down{s}_conv / stem_down{s}_bn
+  backbone.patch_embed.proj.conv / .bn              stem_proj/conv / bn
+  backbone.layers.{s}.blocks.{b}.                   stage{s}_block{b}/
+  backbone.downsamples.{s}.conv / .norm             stage_down{s}_conv / stage_down{s}_bn
+  backbone.decoder.conv1x1.{s}                      fpn_1x1_{s}
+  backbone.decoder.conv3x3.{s}.conv / .bn           fpn_3x3_{s}/conv / bn
+  backbone.decoder.up_conv.{s}.deconv / .bn         head_up{s}_conv / head_up{s}_bn
+  backbone.seg_head.0 / .1 / .3                     head_fc1 / head_bn / head_fc2
+  in a block:
+  cpe.conv / cpe.bn                           cpe (kernel (27, C)) / cpe/bn
+  norm1 / norm2                               norm1 / norm2
+  attention.qkv / .proj / .rpe.rpe_table      attn/qkv / attn/proj / attn/rpe/rpe_table
+  mlp.fc1 / mlp.fc2                           mlp_fc1 / mlp_fc2
+A convolution's weight there is the JAX kernel as is (ocnn names it
+``weights``).
 
 Two differences from the reference are the JAX package's and carry over as
 they are.  Its PT-v2 attention applies a second Linear to q and to k ahead of
@@ -319,6 +364,65 @@ _PPT_RULES = [
 _PPT_ROOT_LEAVES = {"class_embedding": "params/class_embedding",
                     "logit_scale": "params/logit_scale"}
 
+# Swin3D ("sl" a torch layer, "si" its JAX layer: sl + the layer start;
+# "su" a torch upsample, "sw" its JAX level: num_layers - 1 - su)
+_SWIN3D_BLOCK_TAILS = (
+    ("norm1", "norm1", "ln"), ("norm2", "norm2", "ln"),
+    ("attn.qkv", "attn/qkv", "linear"), ("attn.proj", "attn/proj", "linear"),
+    ("attn", "attn", "crse"),
+    ("mlp.fc1", "mlp_fc1", "linear"), ("mlp.fc2", "mlp_fc2", "linear"),
+)
+_SWIN3D_RULES = [
+    ("backbone.stem_layer.conv", _B + "stem_conv", "conv"),
+    ("backbone.stem_layer.norm", _B + "stem_bn", "bn"),
+    ("backbone.stem_layer.0.conv", _B + "stem_conv", "conv"),
+    ("backbone.stem_layer.0.norm", _B + "stem_bn", "bn"),
+    *[(f"backbone.stem_layer.1.{n}", _B + f"stem_res/{n}", kind)
+      for n, kind in (("conv1", "conv"), ("bn1", "bn"), ("conv2", "conv"), ("bn2", "bn"))],
+    ("backbone.downsample.norm", _B + "stem_down/norm", "ln"),
+    ("backbone.downsample.linear", _B + "stem_down/linear", "linear"),
+    *[(f"backbone.layers.{{sl}}.blocks.{{d}}.{tt}", _B + f"layer{{si}}_block{{d}}/{jt}", k)
+      for tt, jt, k in _SWIN3D_BLOCK_TAILS],
+    ("backbone.layers.{sl}.downsample.norm", _B + "down{si}/norm", "ln"),
+    ("backbone.layers.{sl}.downsample.linear", _B + "down{si}/linear", "linear"),
+    ("backbone.upsamples.{su}.linear1.0", _B + "up{sw}/norm1", "ln"),
+    ("backbone.upsamples.{su}.linear1.1", _B + "up{sw}/linear1", "linear"),
+    ("backbone.upsamples.{su}.linear2.0", _B + "up{sw}/norm2", "ln"),
+    ("backbone.upsamples.{su}.linear2.1", _B + "up{sw}/linear2", "linear"),
+    *[(f"backbone.upsamples.{{su}}.block.blocks.0.{tt}", _B + f"up{{sw}}_attn/{jt}", k)
+      for tt, jt, k in _SWIN3D_BLOCK_TAILS],
+    ("backbone.classifier.0", _B + "cls_fc1", "linear"),
+    ("backbone.classifier.1", _B + "cls_bn", "bn"),
+    ("backbone.classifier.3", _B + "cls_fc2", "linear"),
+]
+
+# OctFormer
+_OCTFORMER_RULES = [
+    ("backbone.patch_embed.convs.{s}.conv", _B + "stem_conv{s}/conv", "conv"),
+    ("backbone.patch_embed.convs.{s}.bn", _B + "stem_conv{s}/bn", "bn"),
+    ("backbone.patch_embed.downsamples.{s}.conv", _B + "stem_down{s}_conv", "conv"),
+    ("backbone.patch_embed.downsamples.{s}.bn", _B + "stem_down{s}_bn", "bn"),
+    ("backbone.patch_embed.proj.conv", _B + "stem_proj/conv", "conv"),
+    ("backbone.patch_embed.proj.bn", _B + "stem_proj/bn", "bn"),
+    *[(f"backbone.layers.{{s}}.blocks.{{b}}.{tt}", _B + f"stage{{s}}_block{{b}}/{jt}", k)
+      for tt, jt, k in (("cpe.conv", "cpe", "dwconv"), ("cpe.bn", "cpe/bn", "bn"),
+                        ("norm1", "norm1", "ln"), ("norm2", "norm2", "ln"),
+                        ("attention.qkv", "attn/qkv", "linear"),
+                        ("attention.proj", "attn/proj", "linear"),
+                        ("attention.rpe", "attn/rpe", "rpe"),
+                        ("mlp.fc1", "mlp_fc1", "linear"), ("mlp.fc2", "mlp_fc2", "linear"))],
+    ("backbone.downsamples.{s}.conv", _B + "stage_down{s}_conv", "conv"),
+    ("backbone.downsamples.{s}.norm", _B + "stage_down{s}_bn", "bn"),
+    ("backbone.decoder.conv1x1.{s}", _B + "fpn_1x1_{s}", "linear"),
+    ("backbone.decoder.conv3x3.{s}.conv", _B + "fpn_3x3_{s}/conv", "conv"),
+    ("backbone.decoder.conv3x3.{s}.bn", _B + "fpn_3x3_{s}/bn", "bn"),
+    ("backbone.decoder.up_conv.{s}.deconv", _B + "head_up{s}_conv", "conv"),
+    ("backbone.decoder.up_conv.{s}.bn", _B + "head_up{s}_bn", "bn"),
+    ("backbone.seg_head.0", _B + "head_fc1", "linear"),
+    ("backbone.seg_head.1", _B + "head_bn", "bn"),
+    ("backbone.seg_head.3", _B + "head_fc2", "linear"),
+]
+
 # (torch module path, JAX module path, kind)
 RULES: List[Tuple[str, str, str]] = [
     ("backbone.enc{s}.0.linear", _B + "enc{s}/down/linear", "linear"),
@@ -350,7 +454,9 @@ RULES: List[Tuple[str, str, str]] = [
 _GROUPS = {"st": r"(?P<st>enc|dec)", "s": r"(?P<s>\d)", "b": r"(?P<b>\d+)",
            "i": r"(?P<i>\d+)",
            "j": r"(?P<j>\d+)", "d": r"(?P<d>\d+)", "k": r"(?P<k>\d)",
-           "u": r"(?P<u>\d+)", "w": r"(?P<w>\d+)"}
+           "u": r"(?P<u>\d+)", "w": r"(?P<w>\d+)",
+           "sl": r"(?P<sl>\d+)", "si": r"(?P<si>\d+)", "su": r"(?P<su>\d+)",
+           "sw": r"(?P<sw>\d+)"}
 
 # torch leaf -> (JAX collection, JAX leaf) per kind
 _LEAVES = {
@@ -369,6 +475,9 @@ _LEAVES = {
              "modulation_bias": ("params", "modulation_bias")},
     "rpe": {"rpe_table": ("params", "rpe_table")},
     "embed": {"weight": ("params", "embedding")},
+    "crse": {f"{side}_{g}_table": ("params", f"{side}_{g}_table")
+             for side in ("query", "key", "value") for g in ("xyz", "rgb", "norm")},
+    "dwconv": {"weight": ("params", "kernel")},
     "tables": {f"relative_pos_{n}_table": ("params", f"rel_{n}_table")
                for n in ("query", "key", "value")},
     "kpconv": {"weight": ("params", "kp_weight"),
@@ -400,6 +509,48 @@ _JAX_RX = [(_regex(j, "/"), t, k) for t, j, k in RULES]
 _JAX_RX_ST = ([(_regex(j, "/"), t, k) for t, j, k in _ST_RULES]
               + _JAX_RX[:-len(_ST_RULES)])
 _ST_ONLY = re.compile(r"(^|/)(stem_down|conf_fc1)/")
+# Swin3D and OctFormer trees share names with the Stratified Transformer's
+# and with each other's (``layers.{l}.blocks.{d}``, ``layer{i}_block{d}``):
+# a tree of either reads its own rules alone
+_FAMILIES = {
+    "swin3d": (_SWIN3D_RULES, re.compile(r"attn\.(query|key|value)_(xyz|rgb|norm)_table$"),
+               re.compile(r"attn/(query|key|value)_(xyz|rgb|norm)_table$")),
+    "octformer": (_OCTFORMER_RULES, re.compile(r"^backbone\.decoder\.conv1x1\."),
+                  re.compile(r"(^|/)fpn_1x1_0/")),
+}
+_FAMILY_TORCH_RX = {f: [(_regex(t, "."), j, k) for t, j, k in rules]
+                    for f, (rules, _, _) in _FAMILIES.items()}
+_FAMILY_JAX_RX = {f: [(_regex(j, "/"), t, k) for t, j, k in rules]
+                  for f, (rules, _, _) in _FAMILIES.items()}
+# a Swin3D stem is ``stem_layer`` itself, or its first module where a
+# residual block and a downsample follow (layer start 1)
+_SWIN3D_JAX_RX = {
+    start: [r for r in _FAMILY_JAX_RX["swin3d"]
+            if r[1] not in (("backbone.stem_layer.conv", "backbone.stem_layer.norm") if start
+                            else ("backbone.stem_layer.0.conv", "backbone.stem_layer.0.norm"))]
+    for start in (0, 1)}
+
+
+def _family(keys, side: int):
+    """The model family whose rules alone map these keys (``side`` 1: torch
+    keys, 2: JAX paths), or None for the shared rules."""
+    for name, spec in _FAMILIES.items():
+        if any(spec[side].search(k) for k in keys):
+            return name
+    return None
+
+
+def _swin3d_layout(keys, jax_side: bool):
+    """(num_layers, layer start) of a Swin3D from its keys."""
+    if jax_side:
+        start = int(any(re.search(r"(^|/)stem_down/", k) for k in keys))
+        top = max(int(m.group(1)) for m in (re.search(r"/layer(\d+)_block", k) for k in keys)
+                  if m)
+        return top + 1, start
+    start = int(any(k.startswith("backbone.downsample.") for k in keys))
+    top = max(int(m.group(1)) for m in (re.search(r"^backbone\.layers\.(\d+)\.", k)
+                                        for k in keys) if m)
+    return top + 1 + start, start
 
 
 def _is_linear(kind: str, arr) -> bool:
@@ -408,8 +559,18 @@ def _is_linear(kind: str, arr) -> bool:
     return kind == "linear" or (kind == "conv" and arr.ndim == 2)
 
 
-def _fill(template: str, groups: Dict[str, str], num_layers: int) -> str:
+def _fill(template: str, groups: Dict[str, str], num_layers: int,
+          layer_start: int = 0) -> str:
     g = dict(groups)
+    # Swin3D: layers from the layer start, upsamples from the deepest
+    if g.get("si") is not None:
+        g["sl"] = str(int(g["si"]) - layer_start)
+    elif g.get("sl") is not None:
+        g["si"] = str(int(g["sl"]) + layer_start)
+    if g.get("sw") is not None:
+        g["su"] = str(num_layers - 1 - int(g["sw"]))
+    elif g.get("su") is not None:
+        g["sw"] = str(num_layers - 1 - int(g["su"]))
     if g.get("i") is not None:
         g["j"] = str(int(g["i"]) - 1)
     elif g.get("j") is not None:
@@ -435,9 +596,15 @@ def _st_num_layers(keys, pattern: str, offset: int) -> int:
 def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{params, batch_stats}`` tree -> torch state_dict."""
     sd: Dict[str, torch.Tensor] = {}
-    num_layers = _st_num_layers(flatten_tree(tree.get("params", {})),
-                                r"backbone_module/layer(\d+)_block", 1)
-    is_st = any(_ST_ONLY.search(k) for k in flatten_tree(tree.get("params", {})))
+    paths = flatten_tree(tree.get("params", {}))
+    num_layers = _st_num_layers(paths, r"backbone_module/layer(\d+)_block", 1)
+    layer_start = 0
+    family = _family(paths, 2)
+    if family == "swin3d":
+        num_layers, layer_start = _swin3d_layout(paths, jax_side=True)
+    is_st = any(_ST_ONLY.search(k) for k in paths)
+    rules = (_SWIN3D_JAX_RX[layer_start] if family == "swin3d" else _FAMILY_JAX_RX[family]
+             if family else _JAX_RX_ST if is_st else _JAX_RX)
     root = {j: t for t, j in (*_ROOT_LEAVES.items(), *_PPT_ROOT_LEAVES.items())}
     for coll in ("params", "batch_stats"):
         for path, value in flatten_tree(tree.get(coll, {})).items():
@@ -445,7 +612,7 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
                 sd[root[f"{coll}/{path}"]] = torch.from_numpy(np.array(value))
                 continue
             path = _PD_MODULATION.sub(r"/modulation_\1", path)
-            for rx, torch_tmpl, kind in (_JAX_RX_ST if is_st else _JAX_RX):
+            for rx, torch_tmpl, kind in rules:
                 m = rx.fullmatch(path)
                 if m is None:
                     continue
@@ -453,7 +620,7 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
                              if c == coll and jl == m.group("leaf")), None)
                 if leaf is None:
                     continue
-                mod = _fill(torch_tmpl, m.groupdict(), num_layers)
+                mod = _fill(torch_tmpl, m.groupdict(), num_layers, layer_start)
                 arr = np.asarray(value)
                 if leaf == "modulation_weight" or (leaf == "weight" and _is_linear(kind, arr)):
                     arr = arr.T
@@ -554,17 +721,21 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """torch state_dict -> JAX ``{params, batch_stats}`` tree of numpy."""
     flat: Dict[str, np.ndarray] = {}
     num_layers = _st_num_layers(state_dict, r"backbone\.layers\.(\d+)\.", 2)
+    layer_start = 0
+    family = _family(state_dict, 1)
+    if family == "swin3d":
+        num_layers, layer_start = _swin3d_layout(state_dict, jax_side=False)
     # CAC's prototypes are its ``seg_head``; DefaultSegmentorV2's is a Linear
     root = dict(_PPT_ROOT_LEAVES)
     if any(k.startswith("feat_proj_layer.") for k in state_dict):
         root.update(_ROOT_LEAVES)
-    for key, value in _stack_pd(state_dict).items():
+    for key, value in (state_dict if family else _stack_pd(state_dict)).items():
         if key.endswith(".num_batches_tracked"):
             continue
         if key in root:   # np.array: a 0-d leaf (logit_scale) stays 0-d
             flat[root[key]] = np.array(value.detach().cpu().numpy())
             continue
-        for rx, jax_tmpl, kind in _TORCH_RX:
+        for rx, jax_tmpl, kind in (_FAMILY_TORCH_RX[family] if family else _TORCH_RX):
             m = rx.fullmatch(key)
             if m is None or m.group("leaf") not in _LEAVES[kind]:
                 continue
@@ -572,7 +743,7 @@ def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
             arr = value.detach().cpu().numpy()
             if jleaf == "modulation_kernel" or (jleaf == "kernel" and _is_linear(kind, arr)):
                 arr = arr.T
-            path = _fill(jax_tmpl, m.groupdict(), num_layers)
+            path = _fill(jax_tmpl, m.groupdict(), num_layers, layer_start)
             jleaf = jleaf.replace("modulation_", "modulation/")
             flat[f"{coll}/{path}/{jleaf}"] = np.ascontiguousarray(arr)
             break

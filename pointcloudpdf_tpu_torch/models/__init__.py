@@ -8,3 +8,5 @@ from . import context_aware_classifier  # registers CAC-v1m1
 from . import sparse_unet  # registers SpUNet-v1m1/v1m2/v1m3, MinkUNet*
 from . import point_transformer_v3  # registers PT-v3m1
 from . import point_prompt_training  # registers PPT-v1m1 / PPT-v1m2
+from . import swin3d  # registers Swin3D-v1m1
+from . import octformer  # registers OctFormer-v1m1

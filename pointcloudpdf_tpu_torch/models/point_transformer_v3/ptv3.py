@@ -123,28 +123,35 @@ class Level:
 def rpe_index(grid: torch.Tensor, mask: torch.Tensor, perm: torch.Tensor,
               patch_size: int) -> torch.Tensor:
     """(B, P, K, K) int32 rows of the RPE's offset-triple table for the
-    patches of ``grid`` (B, N, 3) sorted by ``perm`` (B, N): query k, key m
-    -> ``(dx, dy, dz)`` of ``g_k - g_m``, each clipped to +-``rpe_bound``
+    patches of ``grid`` (B, N, 3) sorted by ``perm`` (B, N)
+    (``offset_index`` at ``rpe_bound(patch_size)``)."""
+    b, n = perm.shape
+    k = patch_size
+    n_pad = -(-n // k) * k
+    g = grid.gather(1, perm[..., None].expand(-1, -1, 3))
+    g = F.pad(g.to(torch.int32), (0, 0, 0, n_pad - n)).reshape(b, n_pad // k, k, 3)
+    valid = F.pad(mask.gather(1, perm), (0, n_pad - n)).reshape(b, n_pad // k, k)
+    return offset_index(g, valid, rpe_bound(k))
+
+
+def offset_index(g: torch.Tensor, valid: torch.Tensor, bound: int) -> torch.Tensor:
+    """Patches' grids g (B, P, K, 3) int and row validity (B, P, K) ->
+    (B, P, K, K) int32: for query k and key m the row of the offset ``g_k -
+    g_m`` in a table of every offset triple, each axis clipped to +-``bound``
     and shifted to [0, rpe_num), as ``(dx rpe_num + dy) rpe_num + dz``.
 
     A pair with a padded query or key (its bias is masked, its gradient 0)
     takes the row of its (k, m) slot modulo the table instead: a Mix3D
     empty slot's pairs would otherwise all sit at the zero offset, and the
     lookup's backward sums one row's slots one after another."""
-    b, n = perm.shape
-    k = patch_size
-    n_pad = -(-n // k) * k
-    bound = rpe_bound(k)
+    k = g.shape[2]
     span = 2 * bound + 1
-    g = grid.gather(1, perm[..., None].expand(-1, -1, 3))
-    g = F.pad(g.to(torch.int32), (0, 0, 0, n_pad - n)).reshape(b, n_pad // k, k, 3)
     idx = None
     for axis in range(3):
         a = g[..., axis]
-        rel = torch.clamp(a[:, :, :, None] - a[:, :, None, :], -bound, bound) + bound
+        rel = torch.clamp(a[..., :, None] - a[..., None, :], -bound, bound) + bound
         idx = rel if idx is None else idx * span + rel
-    valid = F.pad(mask.gather(1, perm), (0, n_pad - n)).reshape(b, n_pad // k, k)
-    slots = torch.arange(k * k, dtype=torch.int32, device=grid.device) % span ** 3
+    slots = torch.arange(k * k, dtype=torch.int32, device=g.device) % span ** 3
     return torch.where(valid[..., :, None] & valid[..., None, :], idx, slots.reshape(k, k))
 
 
@@ -161,7 +168,7 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         if generator is None:
-            raise ValueError("PT-v3 drop path in training needs a generator")
+            raise ValueError("drop path in training needs a generator")
         keep = 1.0 - self.rate
         draw = torch.rand((x.shape[0], 1, 1), generator=generator,
                           device=generator.device).to(x.device)
@@ -179,11 +186,12 @@ class RPE(nn.Module):
     not advanced indexing's sort-based backward, nor ``F.embedding``'s,
     which both sum one row's slots one after another
     (``tools/ptv3_rpe_compare_torch.py``: 2.6 against 11.9 ms for
-    ``F.embedding`` at the S3DIS step's level 0 on an H100)."""
+    ``F.embedding`` at the S3DIS step's level 0 on an H100).  ``bound``
+    clips an axis's offset (``rpe_bound`` for PT-v3)."""
 
-    def __init__(self, patch_size: int, num_heads: int):
+    def __init__(self, bound: int, num_heads: int):
         super().__init__()
-        self.bound = rpe_bound(patch_size)
+        self.bound = bound
         self.rpe_num = 2 * self.bound + 1
         self.rpe_table = nn.Parameter(nn.init.trunc_normal_(
             torch.empty(3 * self.rpe_num, num_heads), std=0.02, a=-0.04, b=0.04))
@@ -211,7 +219,7 @@ class SerializedAttention(nn.Module):
         self.patch_size = patch_size
         self.qkv = _linear(channels, 3 * channels, qkv_bias)
         self.proj = _linear(channels, channels)
-        self.rpe = RPE(patch_size, num_heads) if enable_rpe else None
+        self.rpe = RPE(rpe_bound(patch_size), num_heads) if enable_rpe else None
 
     def forward(self, feat: torch.Tensor, level: Level, oi: int) -> torch.Tensor:
         b, n = level.mask.shape

@@ -233,6 +233,22 @@ def gather_conv(feat: torch.Tensor, nbr, weights: torch.Tensor) -> torch.Tensor:
     return out.index_add(0, rules.out_rows, y.to(acc)).to(feat.dtype)
 
 
+def depthwise_conv(feat: torch.Tensor, rules: Rulebook, weight: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum_k feat[nbr[i, k]] * w[k] over the present neighbours, a
+    depthwise conv: feat (M, C), weight (K, C).  One gather of the pairs'
+    rows, each offset's slice scaled by its weight row, one scatter-add into
+    f32 rows (an output row takes its offsets in order, as the JAX scan adds
+    them).  Returns the output in ``feat``'s dtype."""
+    w = weight.to(feat.dtype)
+    gathered = feat.index_select(0, rules.in_rows)
+    parts = [part * w_k for part, w_k, count in
+             zip(gathered.split(rules.counts), w.unbind(0), rules.counts) if count]
+    y = torch.cat(parts) if parts else gathered
+    acc = torch.promote_types(y.dtype, torch.float32)
+    out = torch.zeros((rules.n_out, feat.shape[-1]), dtype=acc, device=feat.device)
+    return out.index_add(0, rules.out_rows, y.to(acc)).to(feat.dtype)
+
+
 # absent children's rows: segments of their own past the parents, this
 # many, so that no one segment is long
 _ABSENT_SEGMENTS = 1024

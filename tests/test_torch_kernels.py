@@ -938,3 +938,46 @@ def test_grid_pool_coordinates_bit_equal_on_the_card(dev):
         cpu = pool.cpu()(feat.cpu(), coord.cpu(), mask.cpu(), capacity=32768)[1]
     assert torch.equal(runs[0], runs[1])
     assert torch.equal(runs[0].cpu(), cpu)
+
+
+def test_swin3d_forward_kernels_match_plain(dev):
+    """A narrow five-layer Swin3D forward on the card over two surface
+    samples (20,000 and 12,000 voxels): its four kNN poolings and four
+    interpolations launch K1 (the level-0 pooling on the bound-pruned
+    kernel), its logits within 1e-4 of max |logit| of the plain versions'
+    and of the CPU's, its levels' pooled xyz and signal bit-equal to the
+    CPU's (summed in row order)."""
+    from pointcloudpdf_tpu_torch.models import build_model
+
+    rng = np.random.RandomState(13)
+    cells = np.array([(x, y, 0) for x in range(200) for y in range(150)]
+                     + [(x, 0, z) for x in range(200) for z in range(1, 100)], np.int32)
+    grid = np.zeros((2, 20480, 3), np.int32)
+    counts = (20000, 12000)
+    for b, c in enumerate(counts):
+        grid[b, :c] = cells[rng.choice(len(cells), c, replace=False)]
+    mask = np.arange(20480)[None] < np.array(counts)[:, None]
+    batch = dict(grid_coord=torch.from_numpy(grid), mask=torch.from_numpy(mask),
+                 feat=torch.from_numpy(rng.rand(2, 20480, 9).astype(np.float32)))
+    torch.manual_seed(13)
+    model = build_model(dict(type="Swin3D-v1m1", in_channels=9, num_classes=13,
+                             depths=(1, 1, 1, 1, 1), channels=(16,) * 5, num_heads=(2,) * 5,
+                             cRSE="XYZ_RGB_NORM", upsample="linear_attn")).eval()
+    with torch.inference_mode():
+        cpu_levels = model.levels(batch)
+        cpu = model(batch)
+        model = model.to(dev)
+        on_dev = {k: v.to(dev) for k, v in batch.items()}
+        launches, pruned = geometry.KNN_LAUNCHES, geometry.KNN_PRUNED_LAUNCHES
+        out = model(on_dev)
+        assert geometry.KNN_LAUNCHES == launches + 8
+        assert geometry.KNN_PRUNED_LAUNCHES > pruned
+        with _cuda.plain_versions():
+            ref = model(on_dev)
+        levels = model.levels(on_dev)
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= 1e-4 * scale
+    assert float((out.cpu() - cpu).abs().max()) <= 1e-4 * scale
+    for a, b in zip(levels, cpu_levels):
+        assert torch.equal(a.mask.cpu(), b.mask)
+        assert torch.equal(a.xyz.cpu(), b.xyz) and torch.equal(a.signal.cpu(), b.signal)

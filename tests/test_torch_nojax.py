@@ -8,7 +8,8 @@ PT-v2m2 step (CE + Lovasz) and one CAC-v1m1 step, a narrow SpUNet-v1m1
 forward and step from the shipped S3DIS config and a CAC-v1m1 step over
 it, a narrow PT-v3m1 forward and step from the shipped S3DIS ``-rpe``
 config, one ``MultiDatasetTrainer`` step of a narrow PPT-v1m1 from the
-shipped S3DIS PPT config, and ``launch`` runs a
+shipped S3DIS PPT config, narrow Swin3D and OctFormer forwards from the
+shipped S3DIS and ScanNet configs, and ``launch`` runs a
 gloo group of one (the data-parallel engine's collectives).  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
@@ -298,6 +299,28 @@ decayed = idle * (1 - 1.9 * ppt.comm_info["lr"] * ppt_cfg.optimizer.weight_decay
 moved = ppt.model.backbone.conv_input[1].bns[0].weight.detach()
 assert not torch.equal(moved, idle) and torch.allclose(moved, decayed, rtol=0, atol=1e-7)
 assert ppt.model.embedding_table.weight.grad.abs().max() == 0
+
+# the shipped S3DIS Swin3D-small and ScanNet OctFormer configs at narrow
+# widths: an eval forward of each through DefaultSegmentor (Swin3D's kNN
+# pooling and interpolation on the plain K1, its cRSE over colour and
+# normal; OctFormer's dilated patches and FPN)
+for path, update, channels in (
+        ("s3dis/semseg-swin3d-v1m1-0-small.py",
+         dict(depths=(1, 2, 1), channels=(8, 16, 16), num_heads=(2, 2, 2), num_layers=3,
+              patch_cap=16), 9),
+        ("scannet/semseg-octformer-v1m1-0-base.py",
+         dict(channels=(8, 8, 16, 16), num_blocks=(2, 1, 1, 1), num_heads=(2, 2, 2, 2),
+              fpn_channels=8, patch_size=8, dilation=2), 10)):
+    wcfg = default_config_parser(ROOT + "/configs/" + path)
+    wcfg.model.backbone.update(update)
+    torch.manual_seed(0)
+    wmodel = build_model(dict(wcfg.model)).eval()
+    wbatch = dict(grid_coord=torch.from_numpy(grid), mask=torch.arange(n)[None] < torch.tensor(
+        [[n], [400]]), feat=torch.rand(2, n, channels))
+    with torch.inference_mode():
+        logits = wmodel(wbatch)["seg_logits"]
+    assert logits.shape == (2, n, wcfg.model.backbone.num_classes)
+    assert torch.isfinite(logits).all() and (logits[1, 400:] == 0).all()
 
 from pointcloudpdf_tpu_torch.engines.launch import launch
 from pointcloudpdf_tpu_torch.utils import comm

@@ -1,6 +1,6 @@
 """Where one training step of the PyTorch port goes, on one GPU.
 
-    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2|spunet|ptv3]
+    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2|spunet|ptv3|swin3d|octformer]
         [--batch-size N] [--steps 3] [--out FILE]
 
 Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``) and a trainer
@@ -13,10 +13,16 @@ seeded Seg50 teacher, Seg50 student with two more classes), ``ptv2``
 0.3, level capacity 0.5), ``spunet`` the same trainer on the S3DIS
 SpUNet-v1m1 config (SGD, PolyLR, Mix3D 0.8, level capacity 0.5), ``ptv3``
 the same trainer on the S3DIS PT-v3m1 ``-rpe`` config (AdamW, OneCycleLR,
-Mix3D 0.8, drop path 0.3, level capacity 0.5) over rooms made as
+Mix3D 0.8, drop path 0.3, level capacity 0.5), ``swin3d`` the S3DIS
+Swin3D-small config (AdamW, MultiStepLR, the ``blocks`` group, Mix3D 0.8,
+drop path 0.3) and ``octformer`` the ScanNet OctFormer config (AdamW,
+Mix3D 0.8, drop path 0.5; its displacement projected on the normal,
+``chip_smoke.octformer_config``, over the rooms relabelled into ScanNet's
+layout, ``chip_smoke.scannet_layout``), the last three over rooms made as
 ``chip_smoke.PTV3_ROOM`` makes them (with normals, at 2,800 points a square
 metre); autocast as each config ships.  The batch size is ``--batch-size``,
-else 16, and for ``ptv2``, ``spunet`` and ``ptv3`` the largest of
+else 16, and for ``ptv2``, ``spunet``, ``ptv3``, ``swin3d`` and
+``octformer`` the largest of
 ``chip_smoke.PTV2_TRAIN_BATCHES`` (12 shipped, 6, 3, 2, 1) that fits the
 card's memory.  Prints, for one fixed batch:
 milliseconds per train step
@@ -26,13 +32,16 @@ step, peak device memory; for ``pt`` also the forward share of the
 batch-statistics pass (CUDA events around ``attention_train_affines``); for
 ``pt`` and ``st`` the host side of the pseudo-label pipeline (score pass,
 fetch, graph stage) beside the train step it is meant to hide behind; for
-``incr`` the teacher's forward alone; for ``ptv2``, ``spunet`` and ``ptv3``
+``incr`` the teacher's forward alone; for the closed-set workloads
 the share of the step in PyTorch's sort-based backward of advanced indexing
 (the plain grouped attention's gathers; SpUNet's rulebook conv and PT-v3's
 gathers and RPE lookup use ``index_select`` and should show none) and one
 evaluator forward over the val room (K7 and K1 by the profiler); for
 ``ptv3`` also the step's cost of the RPE lookup and of the patch
-attention's core, by taking each out (``ptv3_ablations``).  ``--out`` also
+attention's core, for ``octformer`` that of the RPE lookup and for
+``swin3d`` that of the cRSE terms, by taking each out (``ablations``); for
+``swin3d`` and ``octformer`` the valid and held rows of each level of the
+batch (``chip_smoke.window_levels``).  ``--out`` also
 writes the numbers as JSON.
 Needs a CUDA device.
 """
@@ -53,17 +62,20 @@ import chip_smoke  # noqa: E402
 from _profile_torch import card_line, knn_calls, profile_call, write_result  # noqa: E402
 
 
-def ptv3_ablations(step, start, end, steps, step_ms):
-    """PT-v3's step with a part taken out, by CUDA events: without the RPE
-    lookup (a 0 bias: its gather and scatter-add gone, the add kept), and
-    without the patch attention's core (each block's attention its qkv
-    Linear's first third through ``proj``: the gathers, logits, softmax,
-    RPE and p v gone).  The step's ms less each is that part's cost, forward
-    and backward.  Only a measurement: the ablated steps compute another
-    network."""
+def ablations(workload, step, start, end, steps, step_ms):
+    """The step with a part taken out, by CUDA events: ``rpe`` (PT-v3,
+    OctFormer) the RPE lookup (a 0 bias: its gather and scatter-add gone,
+    the add kept); ``attention_core`` (PT-v3) the patch attention's core
+    (each block's attention its qkv Linear's first third through ``proj``:
+    the gathers, logits, softmax, RPE and p v gone); ``crse`` (Swin3D) the
+    cRSE terms (the q, k and value tables' gathers, scatter-adds and
+    products gone, plain masked attention kept).  The step's ms less each
+    is that part's cost, forward and backward.  Only a measurement: the
+    ablated steps compute another network."""
     import torch
 
     from pointcloudpdf_tpu_torch.models.point_transformer_v3 import ptv3
+    from pointcloudpdf_tpu_torch.models.swin3d import swin3d
     from pointcloudpdf_tpu_torch.models.utils.structure import where_valid
 
     def no_rpe(self, index):
@@ -72,12 +84,21 @@ def ptv3_ablations(step, start, end, steps, step_ms):
     def no_core(self, feat, level, oi):
         return where_valid(level.mask, self.proj(self.qkv(feat)[..., :self.channels]))
 
+    crse = swin3d.CRSEAttention.forward
+
+    def no_crse(ctx, q, k, v, scale, tq, tk, tv, bins, pair_valid, offsets):
+        return crse(ctx, q, k, v, scale, tq, tk, tv, bins, pair_valid, [])
+
+    patches = {"rpe": (ptv3.RPE, no_rpe),
+               "attention_core": (ptv3.SerializedAttention, no_core),
+               "crse": (swin3d.CRSEAttention, staticmethod(no_crse))}
+    parts = {"ptv3": ("rpe", "attention_core"), "octformer": ("rpe",),
+             "swin3d": ("crse",)}[workload]
     out = {}
-    for name, cls, attr, patch in (("rpe", ptv3.RPE, "forward", no_rpe),
-                                   ("attention_core", ptv3.SerializedAttention,
-                                    "forward", no_core)):
-        orig = getattr(cls, attr)
-        setattr(cls, attr, patch)
+    for name in parts:
+        cls, patch = patches[name]
+        orig = cls.__dict__["forward"]
+        setattr(cls, "forward", patch)
         try:
             step()
             torch.cuda.synchronize()
@@ -87,7 +108,7 @@ def ptv3_ablations(step, start, end, steps, step_ms):
             end.record()
             torch.cuda.synchronize()
         finally:
-            setattr(cls, attr, orig)
+            setattr(cls, "forward", orig)
         ms = start.elapsed_time(end) / steps
         out[name] = {"step_ms_without": ms, "cost_ms": step_ms - ms,
                      "share": (step_ms - ms) / step_ms}
@@ -100,8 +121,8 @@ def main():
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2", "spunet", "ptv3"),
-                        default="pt")
+    parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2", "spunet", "ptv3",
+                                               "swin3d", "octformer"), default="pt")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--out", default=None, help="write the numbers here as JSON")
     parser.add_argument("--steps", type=int, default=3)
@@ -123,9 +144,12 @@ def main():
         "incr": (chip_smoke.INCR_CONFIG, "IncrSegTrainer"),
         "ptv2": (chip_smoke.PTV2_CONFIG, "DefaultTrainer"),
         "spunet": (chip_smoke.SPUNET_CONFIG, "DefaultTrainer"),
-        "ptv3": (chip_smoke.PTV3_CONFIG, "DefaultTrainer")}[args.workload]
-    closed_set = args.workload in ("ptv2", "spunet", "ptv3")
-    room = chip_smoke.PTV3_ROOM if args.workload == "ptv3" else {}
+        "ptv3": (chip_smoke.PTV3_CONFIG, "DefaultTrainer"),
+        "swin3d": (chip_smoke.SWIN3D_CONFIG, "DefaultTrainer"),
+        "octformer": (chip_smoke.OCTFORMER_CONFIG, "DefaultTrainer")}[args.workload]
+    closed_set = args.workload in ("ptv2", "spunet", "ptv3", "swin3d", "octformer")
+    window = args.workload in ("swin3d", "octformer")
+    room = chip_smoke.PTV3_ROOM if args.workload in ("ptv3", "swin3d", "octformer") else {}
     sizes = ([args.batch_size] if args.batch_size else
              list(chip_smoke.PTV2_TRAIN_BATCHES) if closed_set else [16])
     result = {"card": card, "workload": args.workload, "config": os.path.relpath(config, ROOT)}
@@ -139,6 +163,9 @@ def main():
                 data_root, chip_smoke.TRAIN_AREAS[i % 5], f"office_{i}.npz"), **room)
         chip_smoke.synthetic_room(rng, os.path.join(data_root, "Area_5", "office_1.npz"),
                                   **room)
+        if args.workload == "octformer":
+            config = chip_smoke.octformer_config(work)
+            data_root, _ = chip_smoke.scannet_layout(work, data_root)
         open_set = trainer_type == "OpenSegTrainer"
         result["batch_sizes_out_of_memory"] = []
         for batch_size in sizes:
@@ -147,6 +174,8 @@ def main():
                 "data.val.data_root": data_root, "save_path": os.path.join(work, "exp"),
                 "device": "cuda", "batch_size": batch_size, "num_worker": 0,
                 "evaluate": closed_set, "hooks": [], "seed": 0}
+            if args.workload == "octformer":
+                options["data.train.split"] = (f"Batch{batch_size}",)
             if args.no_amp:
                 options["enable_amp"] = False
             cfg = default_config_parser(config, options)
@@ -219,6 +248,9 @@ def main():
         result["launches_a_step"] = chip_smoke.read_launches()
         print(f"launches a step: {result['launches_a_step']}")
         result.update(profile_call(step, host_ms, "step", top=16))
+        if not result["device_busy_ms"]:
+            # CUPTI did not start (its warning is above): no device time to split
+            raise SystemExit("the profiler recorded no device time; run again")
         result["knn_calls_a_step"] = knn_calls(step)
         torch.cuda.synchronize()  # the timings below start on an idle device
 
@@ -228,9 +260,13 @@ def main():
                                                  / result["device_busy_ms"])
             print(f"indexing backward: {result['indexing_backward_ms']:.1f} ms, "
                   f"{result['indexing_backward_share']:.3f} of busy")
-            if args.workload == "ptv3":
-                result["ablations"] = ptv3_ablations(step, start, end, args.steps,
-                                                     result["step_ms_events"])
+            if args.workload in ("ptv3", "swin3d", "octformer"):
+                result["ablations"] = ablations(args.workload, step, start, end, args.steps,
+                                                result["step_ms_events"])
+            if window:
+                result["levels"] = chip_smoke.window_levels(trainer.model, batch)
+                print(f"levels: valid rows {result['levels']['valid_rows']}, held "
+                      f"{result['levels']['held_rows']}")
             # one evaluator forward over the val room (K7 and K1)
             val = trainer.device_batch(next(iter(trainer.val_loader)))
             result["eval_shape"] = list(val["coord"].shape)
