@@ -57,8 +57,9 @@ Phases, in order; any failure exits non-zero:
    the pooling capacity, then one fragment on the plain versions;
 9. the Stratified Transformer open-set training slice end to end:
    ``tools/train_torch.py`` on the shipped S3DIS ST config at full width
-   over phase 5's rooms (the largest batch of 16, 8, 4, 2 that fits), the
-   last epoch past ``recognizer.start_epoch``; K5 and K6 launched in the
+   over phase 5's rooms (batch 4, else 2: the shipped 16 and 8 do not fit;
+   two epochs of one step), the last epoch past ``recognizer.start_epoch``;
+   K5 and K6 launched in the
    score passes and evaluator forwards alone (the training forwards take
    their plain versions), then ``tools/test_torch.py`` on its checkpoint;
 10. the incremental slice end to end: ``tools/train_torch.py`` on the
@@ -125,11 +126,12 @@ Phases, in order; any failure exits non-zero:
    4's room at four times its density with normals (``PTV3_ROOM``: the
    config's half capacities assume a scanned surface at 2 cm), the largest
    fragment's voxel maps and the four curve sorts of every level built on
-   the card equal to the CPU's bit for bit, its logits within
-   ``TOL_PTV3_LOGITS`` of the port's CPU forward, no point dropped by the
+   the card equal to the CPU's bit for bit, its logits on a crop of it
+   (``CPU_CROP``) within ``TOL_PTV3_LOGITS`` of the port's CPU forward, no
+   point dropped by the
    level capacities, one forward profiled; (b) ``tools/train_torch.py`` on
    that config at full width over phase 5's rooms as ``PTV3_ROOM`` makes
-   them (the largest batch of 12, 6, 3, 2, 1 that fits; AdamW, OneCycleLR,
+   them (batch 2, else 1: the shipped 12, 6 and 3 do not fit; AdamW, OneCycleLR,
    ``param_dicts``, autocast, Mix3D and drop path as shipped), one epoch of
    two steps and the evaluator (its batches on the ``origin_coord`` /
    ``origin_segment`` path), ``tools/test_torch.py`` on the checkpoint, one
@@ -144,20 +146,20 @@ Phases, in order; any failure exits non-zero:
    Structured3D, ScanNet and S3DIS layouts (phase 14's rooms, each labelled
    in its dataset's class space: 25 / 20 / 13), ``tools/train_torch.py`` on
    the shipped S3DIS PPT config (PPT-v1m1 over SpUNet-v1m3) at full width
-   (the largest batch of 12, 6, 3, 2, 1 that fits; SGD, OneCycleLR,
+   (batch 2, else 1: the shipped 12, 6 and 3 do not fit; SGD, OneCycleLR,
    autocast and Mix3D as shipped), one epoch of four steps at the
    datasets' ratios 2 : 1 : 1, each step's condition its batch's dataset's,
    the evaluator on the S3DIS val area under ``S3DIS``;
    ``tools/test_torch.py`` on the checkpoint through a config that adds a
    ``data.test`` under ``S3DIS``; the largest fragment's voxel maps on the
-   card equal to the CPU's, its logits under ``S3DIS`` within
-   ``TOL_SPUNET_LOGITS`` of the port's CPU forward and each condition's
+   card equal to the CPU's, its logits under ``S3DIS`` on a crop of it
+   within ``TOL_SPUNET_LOGITS`` of the port's CPU forward and each condition's
    head on the card, its forward timed; one batch's train step timed with its peak memory, its
    ``indexing_backward_kernel`` share and its loss under autocast against
    f32; (b) one ``MultiDatasetTrainer`` step and one eval forward of the
    shipped S3DIS PT-v3 PPT-extreme config (PD BatchNorm and LayerNorm
-   banks, patches of 1,024) at the largest batch of 24, 12, 6, 2, 1 that
-   fits, with its peak memory; (c) one step and one eval forward of the
+   banks, patches of 1,024) at batch 1 (the shipped 24, 12, 6 and 2 do
+   not fit), with its peak memory; (c) one step and one eval forward of the
    SemanticKITTI PPT-v1m2 model dict (over SpUNet-v1m3) on 2 x 8,000
    indoor points, its idle heads moved by AdamW's decay alone;
 16. Swin3D and OctFormer (K1 in Swin3D's kNN pooling and interpolation,
@@ -167,14 +169,37 @@ Phases, in order; any failure exits non-zero:
    (``TOL_LOGITS``) and a crop of it (``CPU_CROP``) against the port's CPU
    forward (``TOL_WINDOW_LOGITS``), its levels' valid and held rows, one
    forward timed and profiled; (b) ``tools/train_torch.py`` on it at full
-   width over phase 14's rooms (the largest batch of 12, 6, 3, 2, 1 that
-   fits; AdamW with the ``blocks`` group, autocast, Mix3D and drop path as
+   width over phase 14's rooms (the largest of 3, 2, 1 that fits: the
+   shipped 12 and 6 do not; OctFormer's of 6, 3, 2, 1; AdamW with the
+   ``blocks`` group, autocast, Mix3D and drop path as
    shipped), one epoch of two steps and the evaluator, K1 launched, then
    one batch's step timed with its peak, idle share, levels and
    ``indexing_backward_kernel`` share; (c) and (d) the same for the shipped
    ScanNet OctFormer config over those rooms relabelled into ScanNet's
    layout, its displacement projected on the normal (``octformer_config``),
-   no kernel of K1-K7 launched.
+   no kernel of K1-K7 launched;
+17. instance segmentation and OA-CNNs (no kernel of their own, so no K1-K7
+   launch anywhere in it, asserted), over phase 14's rooms, each plane and
+   box an instance: (a) ``tools/train_torch.py`` on the shipped S3DIS
+   PointGroup config at full width (the largest batch of 12, 6, 3, 2, 1
+   that fits; SGD with Nesterov, PolyLR and autocast as shipped), one epoch
+   of two steps and ``InsSegEvaluator`` (mAP, AP50, AP25); the shipped hook
+   again on the checkpoint, its AP table against the host functions
+   recomputed on the card's outputs bit for bit, the largest val scene's
+   ``seg_logits`` and ``bias_pred`` within ``TOL_SPUNET_LOGITS`` of the
+   port's CPU forward, the proposals and the host clustering's ms a scene;
+   one batch's step timed with its peak, idle share and
+   ``indexing_backward_kernel`` share; (b) one ``DefaultTrainer`` step, an
+   eval forward and ``propose`` of the ScanNet, ScanNet200 and S3DIS PPT
+   fine-tune (under ``S3DIS``) PointGroup configs on 2 x 8,000 points at
+   their grids, each with its peak; (c) ``tools/test_torch.py`` on the
+   shipped ScanNet OA-CNNs config over phase 16's ScanNet layout, the
+   largest fragment's voxel and cluster maps on the card equal to the CPU's
+   bit for bit, its logits on a crop within 1e-4 x max |logit| of the CPU
+   forward, its levels, one forward timed; (d) ``tools/train_torch.py`` on
+   it at full width (the largest of 12, 6, 3, 2, 1; AdamW, OneCycleLR, CE +
+   Lovasz, autocast and Mix3D as shipped), the evaluator,
+   ``tools/test_torch.py`` on the checkpoint, one step timed.
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -185,6 +210,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import glob
+import itertools
 import json
 import os
 import runpy
@@ -362,28 +388,33 @@ def clustered_cloud(rng, B, N, valid):
 def synthetic_room(rng, path, normals=False, density=700):
     """A 5 x 4 x 3 m office in the S3DIS layout (coord, color, semantic_gt,
     instance_gt): ceiling, floor, walls, window, door and board patches,
-    and furniture boxes of the other classes; ``density`` raw points a
-    square metre of surface (700: ~1.1 a 4 cm voxel).  With ``normals`` a
-    ``normal`` array too (each plane's unit normal; it draws nothing from
-    ``rng``, so the room is the same)."""
+    and furniture boxes of the other classes, each plane and each box an
+    instance of its own (18 in all); ``density`` raw points a square metre
+    of surface (700: ~1.1 a 4 cm voxel).  With ``normals`` a ``normal``
+    array too (each plane's unit normal).  The instance ids and normals
+    draw nothing from ``rng``, so the room is the same with or without
+    them."""
     parts = []
+    instances = itertools.count()
 
-    def plane(label, origin, u, v):
+    def plane(label, origin, u, v, instance=None):
         area = np.linalg.norm(u) * np.linalg.norm(v)
         n = int(area * density)
         a, b = rng.rand(n, 1), rng.rand(n, 1)
         pts = origin + a * u + b * v + rng.normal(scale=0.004, size=(n, 3))
         normal = np.cross(u, v) / area
-        parts.append((pts, np.full(n, label), np.tile(normal, (n, 1))))
+        instance = next(instances) if instance is None else instance
+        parts.append((pts, np.full(n, label), np.tile(normal, (n, 1)), np.full(n, instance)))
 
     def box(label, lo, hi):
         lo, hi = np.asarray(lo, float), np.asarray(hi, float)
         d = hi - lo
+        instance = next(instances)
         for axis in range(3):
             u = np.eye(3)[(axis + 1) % 3] * d[(axis + 1) % 3]
             v = np.eye(3)[(axis + 2) % 3] * d[(axis + 2) % 3]
             for side in (0.0, 1.0):
-                plane(label, lo + np.eye(3)[axis] * d[axis] * side, u, v)
+                plane(label, lo + np.eye(3)[axis] * d[axis] * side, u, v, instance)
 
     X, Y, Z = ROOM
     plane(0, [0, 0, Z], [X, 0, 0], [0, Y, 0])                  # ceiling
@@ -402,14 +433,14 @@ def synthetic_room(rng, path, normals=False, density=700):
     box(9, [0.06 * X, 0.65 * Y, 0], [0.4 * X, 0.88 * Y, 0.27 * Z])  # sofa
     box(10, [0.76 * X, 0.85 * Y, 0], [0.98 * X, 0.98 * Y, 0.67 * Z])
     box(12, [0.72 * X, 0.12 * Y, 0], [0.86 * X, 0.25 * Y, 0.2 * Z])
-    coord = np.concatenate([p for p, _, _ in parts]).astype(np.float32)
-    label = np.concatenate([lbl for _, lbl, _ in parts]).astype(np.int64)
+    coord = np.concatenate([p for p, _, _, _ in parts]).astype(np.float32)
+    label = np.concatenate([lbl for _, lbl, _, _ in parts]).astype(np.int64)
     color = (rng.rand(len(coord), 3) * 255).astype(np.float32)
     color[:, 0] = np.clip(color[:, 0] * 0.5 + label * 10, 0, 255)
-    extra = ({"normal": np.concatenate([nrm for _, _, nrm in parts]).astype(np.float32)}
+    extra = ({"normal": np.concatenate([nrm for _, _, nrm, _ in parts]).astype(np.float32)}
              if normals else {})
     np.savez(path, coord=coord, color=color, semantic_gt=label,
-             instance_gt=np.zeros_like(label), **extra)
+             instance_gt=np.concatenate([i for _, _, _, i in parts]).astype(np.int64), **extra)
     return len(coord)
 
 
@@ -1558,12 +1589,12 @@ def make_train_rooms(work, name="s3dis_train", **room):
 
 
 def train_with_fallback(work, config, name, data_root, epochs, options,
-                        subsample=True, sizes=(16, 8, 4, 2), areas=None):
+                        subsample=True, sizes=(16, 8, 4, 2), areas=None, iterations=2):
     """``tools/train_torch.py`` on ``config`` at the largest batch size of
     ``sizes`` (the first the shipped one) that fits the card's memory, with
     the launch counts and the pooling capacity's drop count set to 0 just
-    before the run that fits; with ``subsample`` (an open-set trainer) two
-    iterations an epoch at any batch size, with ``areas`` (a function of
+    before the run that fits; with ``subsample`` (an open-set trainer)
+    ``iterations`` an epoch at any batch size, with ``areas`` (a function of
     the batch size giving the train split under ``data_root``) as many as
     that split's rooms fill.  Returns (log, batch size, iterations an
     epoch, wall s, launches, peak GiB, save_path)."""
@@ -1574,7 +1605,7 @@ def train_with_fallback(work, config, name, data_root, epochs, options,
     for batch_size in sizes:
         split = TRAIN_AREAS if areas is None else areas(batch_size)
         rooms = sum(len(glob.glob(os.path.join(data_root, a, "*.npz"))) for a in split)
-        iters = 2 if subsample else rooms // batch_size
+        iters = iterations if subsample else rooms // batch_size
         save_path = os.path.join(work, f"exp_{name}_b{batch_size}")
         argv = ["--config-file", config, "--device", DEVICE, "--options",
                 f"data_root={data_root}", f"save_path={save_path}",
@@ -1593,7 +1624,8 @@ def train_with_fallback(work, config, name, data_root, epochs, options,
         try:
             log = run_tool("train_torch.py", argv)
         except torch.cuda.OutOfMemoryError:
-            print(f"  batch size {batch_size} does not fit the card's memory")
+            print(f"  batch size {batch_size} does not fit the card's memory (tried for "
+                  f"{time.perf_counter() - t0:.1f} s)")
         else:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1606,7 +1638,7 @@ def train_with_fallback(work, config, name, data_root, epochs, options,
     launches = read_launches()
     launches.update(read_knn_kernels())
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"  tools/train_torch.py: batch size {batch_size} (shipped: {sizes[0]}), "
+    print(f"  tools/train_torch.py: batch size {batch_size} (tried: {list(sizes)}), "
           f"{epochs} epochs x {iters} iterations, {wall:.1f} s, peak device "
           f"memory {peak:.2f} GiB; launches {launches}")
     return log, batch_size, iters, wall, launches, peak, save_path
@@ -1819,9 +1851,13 @@ def run_st_training_slice(work, data_root, n_val):
     import re
 
     epochs, start_epoch = 2, 1
+    # an epoch of one step (the ST step is the script's slowest, PERF.md §5)
+    # and the shipped 16 and 8 not tried (they do not fit one H100 80GB): the
+    # script's time limit
     log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
         work, ST_CONFIG, "st_train", data_root, epochs,
-        [f"data.test.data_root={data_root}", f"recognizer.start_epoch={start_epoch}"])
+        [f"data.test.data_root={data_root}", f"recognizer.start_epoch={start_epoch}"],
+        sizes=(4, 2), iterations=1)
     steps = epochs * iters
     losses = train_log_losses(log, steps, ("loss", "loss_rec"))
     print(f"  losses {losses['loss']}, loss_rec {losses['loss_rec']}")
@@ -2942,17 +2978,20 @@ def no_kernel_launched(launches, what):
 
 def check_fragment_maps(tester, fragment, batch, name="SpUNet",
                           keys=("nbr5", "nbr3", "grid", "mask", "c2p"),
-                          tol=TOL_SPUNET_LOGITS, conditions=(None,)):
+                          tol=TOL_SPUNET_LOGITS, conditions=(None,), cpu_crop=None):
     """The largest fragment's voxel maps built on the card equal the CPU's
     bit for bit (``keys`` of the backbone's ``index_maps``: every level's
     neighbour table, the stem's, the parent maps and masks; PT-v3's curve
     sorts), and its logits on the card are within ``tol`` of max |logit| of
     the port's CPU forward, under each of ``conditions`` (the batch's own
-    where None).  Returns each condition's logits' class count."""
+    where None); with ``cpu_crop`` the logits of that share of the fragment
+    (``crop_fragment``: the script's time limit).  Returns each condition's
+    logits' class count."""
     import copy
 
     import torch
 
+    from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
     from pointcloudpdf_tpu_torch.ops import voxel
 
     backbone = tester.model.backbone
@@ -2961,6 +3000,10 @@ def check_fragment_maps(tester, fragment, batch, name="SpUNet",
     with torch.inference_mode():
         maps = backbone.index_maps(batch["grid_coord"], batch["mask"])
         ref = cpu_model.backbone.index_maps(cpu_batch["grid_coord"], cpu_batch["mask"])
+    if cpu_crop is not None:
+        batch = tester.device_batch(padded_collate_fn([crop_fragment(fragment, cpu_crop)]))
+        cpu_batch = {k: v.cpu() if torch.is_tensor(v) else v for k, v in batch.items()}
+        print(f"  logits compared on a crop of {int(batch['mask'].sum())} points")
     compared = [(f"{key}[{i}]", a, b) for key in keys
                 for i, (a, b) in enumerate(zip(*(
                     (m[key] if isinstance(m[key], list) else [m[key]]) for m in (maps, ref))))]
@@ -2974,13 +3017,15 @@ def check_fragment_maps(tester, fragment, batch, name="SpUNet",
     classes = {}
     for condition in conditions:
         named = {} if condition is None else {"condition_name": condition}
+        t0 = time.perf_counter()
         with torch.inference_mode():
             out = tester.forward(dict(batch, **named))["seg_logits"].cpu()
             cpu = cpu_model(dict(cpu_batch, **named))["seg_logits"]
         lmax = float(cpu.abs().max())
         lerr = float((out - cpu).abs().max())
         print(f"  fragment logits{'' if condition is None else ' under ' + condition}, card "
-              f"against CPU: err {lerr:.3e} (max |logit| {lmax:.3e}), {out.shape[-1]} classes")
+              f"against CPU: err {lerr:.3e} (max |logit| {lmax:.3e}), {out.shape[-1]} classes "
+              f"({time.perf_counter() - t0:.1f} s)")
         expect(lerr <= tol * lmax,
                f"{name} logits on the card within {tol} x max |logit| of the CPU's")
         classes[condition] = out.shape[-1]
@@ -3009,12 +3054,14 @@ def profile_train_step(work, data_root, batch_size, config=SPUNET_CONFIG, name="
         "data.train.split": (f"Batch{batch_size}",), "save_path": os.path.join(
             work, f"exp_{name}_profile"), "device": DEVICE, "batch_size": batch_size,
         "num_worker": 0, "evaluate": False, "hooks": [], "seed": SEED})
+    t0 = time.perf_counter()
     torch.manual_seed(SEED)
     trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
     input_dict = next(iter(trainer.train_loader))
     batch = trainer.device_batch(input_dict)
     trainer._dispatch_train(batch)  # warm-up
     torch.cuda.synchronize()
+    t1 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -3024,8 +3071,11 @@ def profile_train_step(work, data_root, batch_size, config=SPUNET_CONFIG, name="
     torch.cuda.synchronize()
     step_ms = start.elapsed_time(end) / 3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t2 = time.perf_counter()
     prof = profile_call(lambda: trainer._dispatch_train(batch), step_ms, f"{name} step",
                         top=8)
+    print(f"  (profile_train_step: trainer, batch and warm-up {t1 - t0:.1f} s, timed steps "
+          f"{t2 - t1:.1f} s, profiled step {time.perf_counter() - t2:.1f} s)")
     share = prof["indexing_backward_ms"] / prof["device_busy_ms"]
     print(f"  {name} train step, batch {list(batch['coord'].shape)} (valid points "
           f"{input_dict['count'].tolist()}): {step_ms:.1f} ms (CUDA events), peak "
@@ -3187,7 +3237,9 @@ def run_spunet_slice(work, data_root, n_val):
 
 PTV3_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v3m1-0-rpe.py")
 PTV3_SCANNET_CONFIG = os.path.join(ROOT, "configs", "scannet", "semseg-pt-v3m1-0-base.py")
-PTV3_TRAIN_BATCHES = PTV2_TRAIN_BATCHES  # the shipped 12, its halves, 2 and 1
+# the shipped 12, 6 and 3 do not fit one H100 80GB (PERF.md §5):
+# the script no longer spends its time limit on showing it again
+PTV3_TRAIN_BATCHES = (2, 1)
 # a fragment's logits, card against CPU, of max |logit|: f32 on both (TF32
 # off), 22 blocks of softmax attention summed in other orders
 TOL_PTV3_LOGITS = 1e-4
@@ -3214,7 +3266,7 @@ def ptv3_fragment_check(tester, fragment, batch):
     from _profile_torch import profile_call
 
     check_fragment_maps(tester, fragment, batch, name="PT-v3", keys=PTV3_MAP_KEYS,
-                          tol=TOL_PTV3_LOGITS)
+                          tol=TOL_PTV3_LOGITS, cpu_crop=CPU_CROP)
 
     def forward():
         with torch.inference_mode():
@@ -3341,8 +3393,10 @@ PPT_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-ppt-v1m1-0-s3-sc-st-
 PPT_V3_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-pt-v3m1-1-ppt-extreme.py")
 PPT_V1M2_CONFIG = os.path.join(ROOT, "configs", "semantic_kitti",
                                "semseg-ppt-v1m2-0-sk-nu-wa-spunet.py")
-PPT_TRAIN_BATCHES = (12, 6, 3, 2, 1)   # the shipped 12 first
-PPT_V3_BATCHES = (24, 12, 6, 2, 1)     # the shipped 24 first
+# the shipped 12, 6 and 3 (PPT) and 24, 12, 6 and 2 (PPT-extreme) do not fit
+# one H100 80GB (PERF.md): not tried again, for the time limit
+PPT_TRAIN_BATCHES = (2, 1)
+PPT_V3_BATCHES = (1,)
 PPT_DISTINCT_ROOMS = 4                 # rooms a layout; a split links them over
 # the dataset a batch came from (its sub-loader's) and the condition its
 # samples must carry
@@ -3482,11 +3536,11 @@ def recorded_ppt_steps():
 
 def ppt_fragment_check(tester):
     """The val room's largest fragment (under ``S3DIS``): its voxel maps on
-    the card equal the CPU's bit for bit, its logits under ``S3DIS`` within
-    ``TOL_SPUNET_LOGITS`` of the port's CPU forward, nothing dropped, and
-    each condition's head on the card (one CPU forward, not three: the
-    script's time limit, since phase 16 came); its forward's ms on the
-    card."""
+    the card equal the CPU's bit for bit, its logits under ``S3DIS`` on a
+    crop of it (``CPU_CROP``) within ``TOL_SPUNET_LOGITS`` of the port's CPU
+    forward, nothing dropped, and each condition's head on the card (one
+    CPU forward of a crop, not three of the fragment: the script's time
+    limit, since phases 16 and 17 came); its forward's ms on the card."""
     import torch
 
     from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
@@ -3498,7 +3552,8 @@ def ppt_fragment_check(tester):
     expect(batch["condition_name"] == "S3DIS", "the test fragments carry S3DIS")
     print(f"  largest fragment {int(batch['mask'].sum())} points (bucket "
           f"{batch['mask'].shape[1]}) of {len(fragments)}")
-    classes = check_fragment_maps(tester, fragment, batch, name="PPT", conditions=("S3DIS",))
+    classes = check_fragment_maps(tester, fragment, batch, name="PPT", conditions=("S3DIS",),
+                                  cpu_crop=CPU_CROP)
     with torch.inference_mode():
         for condition in tester.model.conditions:
             if condition not in classes:
@@ -3595,7 +3650,8 @@ def run_ppt_training(work, root):
                     f"save_path={save_path}", "num_worker=4", "epoch=1", "eval_epoch=1",
                     f"seed={SEED}"])
         except torch.cuda.OutOfMemoryError:
-            print(f"  batch size {batch_size} does not fit the card's memory")
+            print(f"  batch size {batch_size} does not fit the card's memory (tried for "
+                  f"{time.perf_counter() - t0:.1f} s)")
         else:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -3801,6 +3857,9 @@ SWIN3D_CONFIG = os.path.join(ROOT, "configs", "s3dis", "semseg-swin3d-v1m1-0-sma
 OCTFORMER_CONFIG = os.path.join(ROOT, "configs", "scannet",
                                 "semseg-octformer-v1m1-0-base.py")
 WINDOW_TRAIN_BATCHES = PTV2_TRAIN_BATCHES  # the shipped 12, its halves, 2 and 1
+# Swin3D's 12 and 6 and OctFormer's 12 do not fit one H100 80GB (PERF.md):
+# their training starts at the batch that fits, for the time limit
+SWIN3D_TRAIN_BATCHES, OCTFORMER_TRAIN_BATCHES = (3, 2, 1), (6, 3, 2, 1)
 # launches of one Swin3D forward (five layers): K1 once a downsample and once
 # an interpolation
 SWIN3D_PER_FORWARD = {"knn": 4 + 4}
@@ -3907,8 +3966,10 @@ def scannet_layout(work, normals_root):
     """Phase 14's rooms (with normals) relabelled into ScanNet's 20 classes
     under ``work/scannet_oct``: train splits ``Batch{b}`` of 2 b scenes
     (links over the train rooms) and the val room as ``val``.  Returns the
-    root and the val room's points."""
+    root and the val room's points (made once a run)."""
     root = os.path.join(work, "scannet_oct")
+    if os.path.isdir(root):
+        return root, len(np.load(os.path.join(root, "val", "scene0000_00.npz"))["coord"])
     rooms = sorted(glob.glob(os.path.join(normals_root, "Area_[1-46]", "*.npz")))
     os.makedirs(os.path.join(root, "rooms"))
     os.makedirs(os.path.join(root, "val"))
@@ -3927,10 +3988,12 @@ def scannet_layout(work, normals_root):
     return root, len(room["coord"])
 
 
-def serve_octformer(work, config, root, n_val):
-    """Phase 16(c): ``tools/test_torch.py`` on the ScanNet OctFormer config
-    (``octformer_config``) over the val scene, seeded random weights through
-    the bridge; no kernel launched; the fragment check."""
+def serve_scannet_layout(work, config, root, n_val, name="octformer",
+                         fragment_check=window_fragment_check):
+    """``tools/test_torch.py`` on a ScanNet config over ``scannet_layout``'s
+    val scene, seeded random weights through the bridge; no kernel
+    launched; ``fragment_check`` on the largest fragment (phase 16(c): the
+    OctFormer config, ``octformer_config``; phase 17(c): OA-CNNs)."""
     import torch
 
     from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
@@ -3940,9 +4003,9 @@ def serve_octformer(work, config, root, n_val):
 
     cfg = Config.fromfile(config)
     torch.manual_seed(SEED)
-    weight = os.path.join(work, "model_octformer.pth")
+    weight = os.path.join(work, f"model_{name}.pth")
     random_jax_checkpoint(weight, build_model(dict(cfg.model)))
-    save_path = os.path.join(work, "exp_octformer")
+    save_path = os.path.join(work, f"exp_{name}")
     reset_launches()
     t0 = time.perf_counter()
     log = run_tool("test_torch.py", [
@@ -3951,14 +4014,14 @@ def serve_octformer(work, config, root, n_val):
         f"data.test.data_root={root}"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    no_kernel_launched(read_launches(), "OctFormer serving")
+    no_kernel_launched(read_launches(), f"{name} serving")
     forwards = log.count(", Batch: ")
     pred = np.load(glob.glob(os.path.join(save_path, "result", "*_pred.npy"))[0])
     expect("Val result: mIoU/mAcc/allAcc" in log and pred.shape == (n_val,)
            and pred.min() >= 0 and pred.max() < 20,
            f"pred covers all {n_val} points, in [0, 20)")
     cfg.merge_from_dict({"data_root": root, "weight": weight, "device": DEVICE,
-                         "save_path": os.path.join(work, "exp_octformer_check"),
+                         "save_path": os.path.join(work, f"exp_{name}_check"),
                          "data.test.data_root": root})
     tester = TESTERS.build(dict(type="SemSegTester", cfg=cfg))
     tester.load_weights()
@@ -3966,22 +4029,26 @@ def serve_octformer(work, config, root, n_val):
     fragment = max(fragments, key=lambda f: len(f["coord"]))
     print(f"  tools/test_torch.py: {wall:.1f} s, {forwards} forwards; {len(fragments)} "
           f"fragments of up to {len(fragment['coord'])} points")
-    window_fragment_check(tester, fragment, tester.device_batch(padded_collate_fn([fragment])))
-    return dict(window_fragment_check.result, fragments=len(fragments), wall=wall)
+    reset_launches()
+    fragment_check(tester, fragment, tester.device_batch(padded_collate_fn([fragment])))
+    no_kernel_launched(read_launches(), f"{name}'s fragment check")
+    return dict(fragment_check.result, fragments=len(fragments), wall=wall)
 
 
-def train_window_model(work, config, name, data_root, test_root):
+def train_window_model(work, config, name, data_root, test_root,
+                       sizes=WINDOW_TRAIN_BATCHES):
     """``tools/train_torch.py`` on ``config`` at full width at the largest
-    batch of ``WINDOW_TRAIN_BATCHES`` that fits (one epoch of two steps and
+    batch of ``sizes`` that fits (one epoch of two steps and
     the evaluator; autocast, Mix3D and drop path as shipped), then one
-    batch's step profiled with its levels' rows.  Returns (launches, step)."""
+    batch's step profiled with its levels' rows.  Returns (launches, step);
+    the step's ``save_path`` is the training run's."""
     import re
 
     import torch
 
-    log, batch_size, iters, wall, launches, peak, _ = train_with_fallback(
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
         work, config, name, data_root, 1, [f"data.test.data_root={test_root}"],
-        subsample=False, sizes=WINDOW_TRAIN_BATCHES, areas=lambda b: (f"Batch{b}",))
+        subsample=False, sizes=sizes, areas=lambda b: (f"Batch{b}",))
     losses = train_log_losses(log, iters)["loss"]
     print(f"  losses {losses}")
     for line in re.findall(r"Val result: [^\n]*", log):
@@ -3992,7 +4059,7 @@ def train_window_model(work, config, name, data_root, test_root):
     torch.cuda.empty_cache()
     step = profile_train_step(work, data_root, batch_size, config, name, report=window_levels)
     print(f"  {name} step levels: valid rows {step['valid_rows']}, held {step['held_rows']}")
-    step.update(batch_size=batch_size, train_peak=peak, train_wall=wall)
+    step.update(batch_size=batch_size, train_peak=peak, train_wall=wall, save_path=save_path)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, step
@@ -4028,7 +4095,7 @@ def run_window_slice(work):
     gc.collect()
     torch.cuda.empty_cache()
     train_launches, swin_step = train_window_model(
-        work, SWIN3D_CONFIG, "Swin3D", split_root, normals_root)
+        work, SWIN3D_CONFIG, "Swin3D", split_root, normals_root, SWIN3D_TRAIN_BATCHES)
     n_train = sum(train_launches[k] for k in ("knn_pruned", "knn_brute"))
     expect(n_train > 0, f"K1 launched {n_train} times training Swin3D")
     for key, n in train_launches.items():
@@ -4043,19 +4110,288 @@ def run_window_slice(work):
     gc.collect()
     torch.cuda.empty_cache()
     oct_config = octformer_config(work)
-    oct_serving = serve_octformer(work, oct_config, scannet_root, n_scannet)
+    oct_serving = serve_scannet_layout(work, oct_config, scannet_root, n_scannet)
     walls["c"] = time.perf_counter() - t0
 
     print("  (d) tools/train_torch.py on it at full width (ScanNet's layout)")
     t0 = time.perf_counter()
     oct_launches, oct_step = train_window_model(
-        work, oct_config, "OctFormer", scannet_root, scannet_root)
+        work, oct_config, "OctFormer", scannet_root, scannet_root, OCTFORMER_TRAIN_BATCHES)
     no_kernel_launched(oct_launches, "OctFormer training and its evaluator")
     walls["d"] = time.perf_counter() - t0
     print("  phase 16 walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     return (serving, {k: train_launches[k] for k in ("knn_pruned", "knn_brute")},
             dict(swin3d=dict(swin_step, serving=swin_fragment),
                  octformer=dict(oct_step, serving=oct_serving)))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: instance segmentation (PointGroup over SpUNet and over PPT, the
+# host clustering, InsSegEvaluator) and OA-CNNs.  No kernel of their own:
+# plain PyTorch over phase 13's rulebook conv, as the JAX package's are plain
+# jnp; the clustering and the AP run on the card's host, as the JAX package
+# runs them on its host.
+
+PG_CONFIG = os.path.join(ROOT, "configs", "s3dis", "insseg-pointgroup-v1m1-0-spunet-base.py")
+# (name, config, the batch's condition)
+PG_OTHER_CONFIGS = (
+    ("ScanNet PointGroup", os.path.join(ROOT, "configs", "scannet",
+                                        "insseg-pointgroup-v1m1-0-spunet-base.py"), None),
+    ("ScanNet200 PointGroup", os.path.join(ROOT, "configs", "scannet200",
+                                           "insseg-pointgroup-spunet-0-base.py"), None),
+    ("S3DIS PPT fine-tune PointGroup", os.path.join(
+        ROOT, "configs", "s3dis", "insseg-ppt-v1m1-0-pointgroup-spunet-ft.py"), "S3DIS"),
+)
+PG_LOSS_KEYS = ("loss", "seg_loss", "bias_l1_loss", "bias_cosine_loss")
+OACNNS_CONFIG = os.path.join(ROOT, "configs", "scannet", "semseg-oacnns-v1m1-0-base.py")
+INSSEG_TRAIN_BATCHES = PTV2_TRAIN_BATCHES  # the shipped 12, its halves, 2 and 1
+
+
+def insseg_grid_batch(trainer, data_root, grid, condition=None, rooms=2):
+    """``CAC_POINTS`` voxels of each of two of phase 14's rooms at ``grid``
+    (the first point of a voxel): coordinates, grid, colour and normal,
+    labels clipped to ScanNet's 20 classes, the rooms' instances and their
+    centroids over the kept points; tagged ``condition`` where given."""
+    rng = np.random.RandomState(SEED + 4)
+    paths = sorted(glob.glob(os.path.join(data_root, TRAIN_AREAS[0], "*.npz")))[:rooms]
+    keys = ("coord", "grid_coord", "feat", "segment", "instance", "instance_centroid")
+    out = {k: [] for k in keys}
+    for path in paths:
+        room = np.load(path)
+        cells = np.floor((room["coord"] - room["coord"].min(0)) / grid).astype(np.int32)
+        first = np.unique(cells, axis=0, return_index=True)[1]
+        keep = first[rng.permutation(len(first))[:CAC_POINTS]]
+        coord, instance = room["coord"][keep], room["instance_gt"][keep]
+        centroid = np.zeros_like(coord)
+        for iid in np.unique(instance):
+            centroid[instance == iid] = coord[instance == iid].mean(0)
+        values = dict(coord=coord, grid_coord=cells[keep], feat=np.concatenate(
+            [room["color"][keep] / 255.0, room["normal"][keep]], 1),
+            segment=np.minimum(room["semantic_gt"][keep], 19), instance=instance,
+            instance_centroid=centroid)
+        for k in keys:
+            pad = [(0, CAC_BUCKET - len(coord))] + [(0, 0)] * (values[k].ndim - 1)
+            fill = -1 if k in ("segment", "instance") else 0
+            out[k].append(np.pad(values[k], pad, constant_values=fill))
+    batch = {k: np.stack(v) for k, v in out.items()}
+    for k in ("coord", "feat", "instance_centroid"):
+        batch[k] = batch[k].astype(np.float32)
+    for k in ("segment", "instance"):
+        batch[k] = batch[k].astype(np.int64)
+    batch["count"] = np.full(rooms, CAC_POINTS, np.int32)
+    if condition is not None:
+        batch["condition"] = [condition] * rooms
+    return trainer.device_batch(batch)
+
+
+def config_grid(config):
+    """The grid of a config's training ``GridSample``."""
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    return next(t["grid_size"] for t in Config.fromfile(config).data.train.transform
+                if t["type"] == "GridSample")
+
+
+def pointgroup_step(work, name, config, data_root, condition):
+    """Phase 17(b): one ``DefaultTrainer`` step and one eval forward of a
+    PointGroup config at full width on 2 x 8,000 points at its grid (the
+    model's loss and three parts, no kernel launched), then ``propose`` on
+    the first sample.  Returns the peak GiB."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    grid = config_grid(config)
+    trainer, batch, out, _ = one_step_and_eval(
+        config, work, name, {}, lambda t: insseg_grid_batch(t, data_root, grid, condition))
+    expect(set(out) == set(PG_LOSS_KEYS), f"{name}: the model's loss and its three parts")
+    if condition is not None:
+        expect(batch["condition_name"] == condition, f"{name}: the batch's condition reached "
+                                                     "the model")
+    evaluated = trainer.eval_step(batch)
+    n = CAC_POINTS
+    t0 = time.perf_counter()
+    masks, classes, _ = trainer.model.propose(*(
+        t[0, :n].float().cpu().numpy() for t in (batch["coord"], evaluated["seg_logits"],
+                                                 evaluated["bias_pred"])), np.ones(n, bool))
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {name}: grid {grid} m, {len(classes)} proposals from {n} points in {ms:.1f} ms "
+          f"on the host; peak {peak:.2f} GiB")
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def pointgroup_checks(work, data_root, weight):
+    """Phase 17(a), after training: the shipped hook (``InsSegEvaluator``)
+    over the val area on the trained checkpoint, its forwards on the card;
+    its AP table against the host functions recomputed on the outputs it
+    was given (bit for bit); the largest val scene's ``seg_logits`` and
+    ``bias_pred`` against the port's CPU forward (``TOL_SPUNET_LOGITS``).
+    Returns the proposals and the clustering's ms a scene and the metrics."""
+    import copy
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+    from pointcloudpdf_tpu_torch.engines.hooks import build_hooks
+    from pointcloudpdf_tpu_torch.engines.hooks.evaluator import ap_summary, ap_table
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.utils.checkpoint import load_checkpoint
+    from pointcloudpdf_tpu_torch.utils.config import Config
+
+    shipped = [h for h in Config.fromfile(PG_CONFIG).hooks if h["type"] == "InsSegEvaluator"]
+    cfg = default_config_parser(PG_CONFIG, {
+        "data_root": data_root, "data.train.data_root": data_root,
+        "data.train.split": ("Batch1",), "data.val.data_root": data_root,
+        "save_path": os.path.join(work, "exp_pointgroup_check"), "device": DEVICE,
+        "batch_size": 1, "num_worker": 0, "hooks": [], "seed": SEED})
+    trainer = TRAINERS.build(dict(type="DefaultTrainer", cfg=cfg))
+    trainer.load_state_dict(load_checkpoint(weight)["state"])
+    hook, = build_hooks(shipped)
+    hook.trainer = trainer
+    hook.before_train()
+    recorded = []
+    host_scenes = hook.batch_scenes
+
+    def recording(model, input_dict, out):
+        recorded.append((input_dict, {k: v.clone() for k, v in out.items()}))
+        return host_scenes(model, input_dict, out)
+
+    hook.batch_scenes = recording
+    reset_launches()
+    hook.eval()
+    no_kernel_launched(read_launches(), "the evaluator's forwards")
+    scenes = [s for input_dict, out in recorded
+              for s in host_scenes(trainer.model, input_dict, out)]
+    again = ap_table(scenes, hook.valid_classes)
+    m_ap, m_ap50, m_ap25 = ap_summary(hook.ap_table)
+    proposals = [len(s["classes"]) for s in scenes]
+    propose_ms = [s["propose_ms"] for s in scenes]
+    print(f"  InsSegEvaluator on the card's outputs: mAP {m_ap:.4f}, AP50 {m_ap50:.4f}, "
+          f"AP25 {m_ap25:.4f} over classes {hook.valid_classes}; proposals a scene "
+          f"{proposals}, clustering {[round(t, 1) for t in propose_ms]} ms a scene "
+          f"(recomputed)")
+    expect(np.array_equal(hook.ap_table, again, equal_nan=True),
+           "the evaluator's AP table equals the host functions' on its outputs, bit for bit")
+    input_dict, out = max(recorded, key=lambda r: int(np.max(r[0]["count"])))
+    batch = trainer.device_batch(input_dict)
+    cpu_model = copy.deepcopy(trainer.model).cpu().eval()
+    with torch.inference_mode():
+        ref = cpu_model({k: v.cpu() if torch.is_tensor(v) else v for k, v in batch.items()})
+    for key in ("seg_logits", "bias_pred"):
+        top = float(ref[key].abs().max())
+        err = float((out[key].cpu() - ref[key]).abs().max())
+        print(f"  largest val scene ({int(np.max(input_dict['count']))} points): {key} card "
+              f"against CPU err {err:.3e} (max {top:.3e})")
+        expect(err <= TOL_SPUNET_LOGITS * top,
+               f"{key} on the card within {TOL_SPUNET_LOGITS} x max of the CPU's")
+    del trainer, cpu_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(proposals=proposals, propose_ms=propose_ms, m_ap=m_ap, m_ap50=m_ap50,
+                m_ap25=m_ap25)
+
+
+def oacnns_fragment_check(tester, fragment, batch):
+    """An OA-CNNs test fragment: its voxel maps (every level's grid and
+    mask, the parent maps, each grid size's cluster maps) built on the card
+    equal the CPU's bit for bit; then ``window_fragment_check`` (levels,
+    the logits on a crop against the CPU forward, the forward timed)."""
+    import torch
+
+    backbone = tester.model.backbone
+    with torch.inference_mode():
+        maps = backbone.index_maps(batch["grid_coord"], batch["mask"])
+        ref = backbone.index_maps(batch["grid_coord"].cpu(), batch["mask"].cpu())
+    compared = [(f"{key}[{i}]", a, b) for key in ("grid", "mask", "c2p")
+                for i, (a, b) in enumerate(zip(maps[key], ref[key]))]
+    compared += [(f"clusters[{i}][{j}]", a, b) for i, (sa, sb) in enumerate(
+        zip(maps["clusters"], ref["clusters"])) for j, (a, b) in enumerate(zip(sa, sb))]
+    differ = [label for label, a, b in compared if not torch.equal(a.cpu(), b)]
+    expect(not differ, f"{len(compared)} OA-CNNs voxel and cluster maps equal on the card "
+                       f"and the CPU bit for bit; differ: {differ}")
+    window_fragment_check(tester, fragment, batch)
+    oacnns_fragment_check.result = window_fragment_check.result
+
+
+def run_insseg_slice(work):
+    """Phase 17: (a) training and evaluating the shipped S3DIS PointGroup
+    config, (b) a step of the ScanNet, ScanNet200 and S3DIS PPT fine-tune
+    PointGroup configs, (c) serving and (d) training the shipped ScanNet
+    OA-CNNs config, over phase 14's rooms (made here when phase 14 has not
+    run; each plane and box an instance)."""
+    import re
+
+    import torch
+
+    walls = {}
+    t0 = time.perf_counter()
+    normals_root = os.path.join(work, "s3dis_train_ptv3")
+    if not os.path.isdir(normals_root):
+        normals_root, _ = make_train_rooms(work, "s3dis_train_ptv3", **PTV3_ROOM)
+    split_root = two_batch_splits(work, normals_root, "s3dis_two_batches_normals")
+    scannet_root, n_scannet = scannet_layout(work, normals_root)
+    walls["rooms"] = time.perf_counter() - t0
+
+    print("  (a) tools/train_torch.py on the shipped S3DIS PointGroup config at full width, "
+          "InsSegEvaluator")
+    t0 = time.perf_counter()
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, PG_CONFIG, "pointgroup_train", split_root, 1, [], subsample=False,
+        sizes=INSSEG_TRAIN_BATCHES, areas=lambda b: (f"Batch{b}",))
+    no_kernel_launched(launches, "PointGroup training and its evaluator")
+    losses = train_log_losses(log, iters, PG_LOSS_KEYS)
+    print(f"  losses {losses}")
+    for line in re.findall(r"(?:Val result|Test: \[)[^\n]*", log):
+        print("  " + line)
+    expect("Val result: mAP/AP50/AP25" in log, "the evaluator ran: mAP, AP50 and AP25")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pg = pointgroup_checks(work, split_root, os.path.join(save_path, "model", "model_last.pth"))
+    reset_launches()
+    step = profile_train_step(work, split_root, batch_size, PG_CONFIG, "PointGroup")
+    no_kernel_launched(read_launches(), "the profiled PointGroup steps")
+    pg.update(step, batch_size=batch_size, train_peak=peak, train_wall=wall)
+    gc.collect()
+    torch.cuda.empty_cache()
+    walls["a"] = time.perf_counter() - t0
+
+    print("  (b) the ScanNet, ScanNet200 and S3DIS PPT fine-tune PointGroup configs: a step, "
+          "an eval forward and proposals")
+    t0 = time.perf_counter()
+    pg["other_peaks"] = {name: pointgroup_step(work, name, config, normals_root, condition)
+                         for name, config, condition in PG_OTHER_CONFIGS}
+    walls["b"] = time.perf_counter() - t0
+
+    print("  (c) tools/test_torch.py on the shipped ScanNet OA-CNNs config")
+    t0 = time.perf_counter()
+    oa_serving = serve_scannet_layout(work, OACNNS_CONFIG, scannet_root, n_scannet, "oacnns",
+                                      oacnns_fragment_check)
+    walls["c"] = time.perf_counter() - t0
+
+    print("  (d) tools/train_torch.py on it at full width (ScanNet's layout), then the tester")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    oa_launches, oa_step = train_window_model(work, OACNNS_CONFIG, "OA-CNNs", scannet_root,
+                                              scannet_root)
+    no_kernel_launched(oa_launches, "OA-CNNs training and its evaluator")
+    test_save = os.path.join(work, "exp_oacnns_train_test")
+    reset_launches()
+    log = run_tool("test_torch.py", [
+        "--config-file", OACNNS_CONFIG, "--device", DEVICE, "--options",
+        f"data_root={scannet_root}", f"data.test.data_root={scannet_root}",
+        f"weight={os.path.join(oa_step['save_path'], 'model', 'model_last.pth')}",
+        f"save_path={test_save}"])
+    no_kernel_launched(read_launches(), "the tester on the trained OA-CNNs checkpoint")
+    pred = np.load(glob.glob(os.path.join(test_save, "result", "*_pred.npy"))[0])
+    expect("Val result: mIoU/mAcc/allAcc" in log and pred.shape == (n_scannet,),
+           f"tools/test_torch.py tested the trainer's checkpoint: pred of {n_scannet} points")
+    walls["d"] = time.perf_counter() - t0
+    print("  phase 17 walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return pg, dict(oa_step, serving=oa_serving)
 
 
 def main() -> int:
@@ -4151,6 +4487,19 @@ def main() -> int:
         print("[16] Swin3D and OctFormer: serving and training the shipped S3DIS "
               "Swin3D-small and ScanNet OctFormer configs")
         swin_serving, swin_train, window = phase("16", run_window_slice, work)
+        print("[17] instance segmentation and OA-CNNs: training and evaluating the shipped "
+              "S3DIS PointGroup config, steps of the other PointGroup configs, serving and "
+              "training the shipped ScanNet OA-CNNs config")
+        pg, oacnns = phase("17", run_insseg_slice, work)
+        window["oacnns"] = oacnns
+        print(f"  {card}: PointGroup train step {pg['step_ms']:.1f} ms at batch "
+              f"{pg['batch_size']} (shipped 12), {pg['shape']}, peak {pg['peak']:.2f} GiB "
+              f"(training run {pg['train_peak']:.2f}), idle {pg['idle']:.3f}, indexing "
+              f"backward share {pg['share']:.4f}; mAP {pg['m_ap']:.4f}, AP50 "
+              f"{pg['m_ap50']:.4f}, AP25 {pg['m_ap25']:.4f}; proposals a val scene "
+              f"{pg['proposals']}, host clustering ms a scene "
+              f"{[round(t, 1) for t in pg['propose_ms']]}; peaks of the other configs' steps "
+              f"{ {k: round(v, 2) for k, v in pg['other_peaks'].items()} } GiB")
         for name, step in window.items():
             served = step["serving"]
             print(f"  {card}: {name} serving {served['ms']:.2f} ms a fragment of "

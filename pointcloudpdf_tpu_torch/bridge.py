@@ -202,6 +202,34 @@ OctFormer (``OctFormer-v1m1`` under ``DefaultSegmentor``; Pointcept
 A convolution's weight there is the JAX kernel as is (ocnn names it
 ``weights``).
 
+PointGroup (``PG-v1m1``; Pointcept ``point_group_v1m1_base.py`` names; its
+backbone under ``backbone.`` / ``backbone_module`` by the rules above)
+  bias_head.0 / .1 / .3                       bias_fc1 / bias_bn / bias_fc2
+  seg_head                                    seg_head
+Over a PPT backbone (``PPT-v1m1`` in ``backbone_mode``) the PPT's own tree
+nests: ``backbone.<PPT name>`` / ``backbone_module/<PPT path>``.
+
+OA-CNNs (``OACNNs`` under ``DefaultSegmentor``; Pointcept
+``oacnns_v1m1_base.py`` names as far as the JAX structure maps onto them;
+``{i}`` a grid size's index, S a block's count of them)
+  backbone.stem.{0,3,6} / .{1,4,7}            stem{0,1,2} / stem_bn{0,1,2}
+  backbone.enc.{s}.down.0 / .1                down{s} / down_bn{s}
+  backbone.enc.{s}.blocks.{b}.                enc{s}_block{b}/
+  backbone.dec.{s}.up.0 / .1                  up{s} / up_bn{s}
+  backbone.dec.{s}.fuse.0 / .1 / .3 / .4      fuse{s}_fc1 / _bn1 / _fc2 / _bn2
+  backbone.final                              final                     Linear
+  in a block:
+  l_w.{i}.0 / .1                              lw{i}_fc / lw{i}_bn
+  weight.{i}                                  weight{i}
+  proj.{i}.0 / .1 (i < S)                     proj{i}_fc / proj{i}_bn
+  proj.{S}.0 / .1                             proj_last_fc / proj_last_bn
+  adaptive / fuse.0 / fuse.1                  adaptive / fuse_fc / fuse_bn
+  voxel_block.0 / .1 / .3 / .4                conv1 / bn1 / conv2 / bn2
+Every JAX leaf has a name there.  Without a counterpart: decoder blocks of
+``dec_depth`` (the JAX module has one fuse a stage and none, so no
+``dec.{s}.blocks``), and ``final``'s kernel axes (a Linear here and in
+JAX, a 1x1 sparse conv in the reference, whose kernel holds unit axes).
+
 Two differences from the reference are the JAX package's and carry over as
 they are.  Its PT-v2 attention applies a second Linear to q and to k ahead of
 their BatchNorms (``q_fc1`` / ``k_fc1``, no reference counterpart: a
@@ -423,6 +451,30 @@ _OCTFORMER_RULES = [
     ("backbone.seg_head.3", _B + "head_fc2", "linear"),
 ]
 
+# OA-CNNs (the last projection of a block, ``proj.{S}``, is ``proj.last``
+# in the rules: ``_oacnns_last_proj`` renames it)
+_OACNNS_BLOCK = ("backbone.enc.{s}.blocks.{b}.", _B + "enc{s}_block{b}/")
+_OACNNS_RULES = [
+    *[(f"backbone.stem.{3 * i + r}", _B + f"stem{'_bn' if r else ''}{i}", "bn" if r else "conv")
+      for i in range(3) for r in (0, 1)],
+    ("backbone.enc.{s}.down.0", _B + "down{s}", "conv"),
+    ("backbone.enc.{s}.down.1", _B + "down_bn{s}", "bn"),
+    *[(_OACNNS_BLOCK[0] + tt, _OACNNS_BLOCK[1] + jt, k) for tt, jt, k in (
+        ("l_w.{d}.0", "lw{d}_fc", "linear"), ("l_w.{d}.1", "lw{d}_bn", "bn"),
+        ("weight.{d}", "weight{d}", "linear"),
+        ("proj.{d}.0", "proj{d}_fc", "linear"), ("proj.{d}.1", "proj{d}_bn", "bn"),
+        ("proj.last.0", "proj_last_fc", "linear"), ("proj.last.1", "proj_last_bn", "bn"),
+        ("adaptive", "adaptive", "linear"),
+        ("fuse.0", "fuse_fc", "linear"), ("fuse.1", "fuse_bn", "bn"),
+        ("voxel_block.0", "conv1", "conv"), ("voxel_block.1", "bn1", "bn"),
+        ("voxel_block.3", "conv2", "conv"), ("voxel_block.4", "bn2", "bn"))],
+    ("backbone.dec.{s}.up.0", _B + "up{s}", "conv"),
+    ("backbone.dec.{s}.up.1", _B + "up_bn{s}", "bn"),
+    *[(f"backbone.dec.{{s}}.fuse.{3 * i + r}", _B + f"fuse{{s}}_{'bn' if r else 'fc'}{i + 1}",
+       "bn" if r else "linear") for i in range(2) for r in (0, 1)],
+    ("backbone.final", _B + "final", "linear"),
+]
+
 # (torch module path, JAX module path, kind)
 RULES: List[Tuple[str, str, str]] = [
     ("backbone.enc{s}.0.linear", _B + "enc{s}/down/linear", "linear"),
@@ -448,6 +500,10 @@ RULES: List[Tuple[str, str, str]] = [
     *_PTV3_RULES,
     *_CAC_RULES,
     *_PPT_RULES,
+    # PointGroup's heads (its backbone under the rules above)
+    ("bias_head.0", "bias_fc1", "linear"),
+    ("bias_head.1", "bias_bn", "bn"),
+    ("bias_head.3", "bias_fc2", "linear"),
     *_ST_RULES,
 ]
 
@@ -517,6 +573,8 @@ _FAMILIES = {
                re.compile(r"attn/(query|key|value)_(xyz|rgb|norm)_table$")),
     "octformer": (_OCTFORMER_RULES, re.compile(r"^backbone\.decoder\.conv1x1\."),
                   re.compile(r"(^|/)fpn_1x1_0/")),
+    "oacnns": (_OACNNS_RULES, re.compile(r"^backbone\.enc\.\d+\.blocks\.\d+\.l_w\."),
+               re.compile(r"(^|/)enc\d+_block\d+/lw0_fc/")),
 }
 _FAMILY_TORCH_RX = {f: [(_regex(t, "."), j, k) for t, j, k in rules]
                     for f, (rules, _, _) in _FAMILIES.items()}
@@ -593,8 +651,46 @@ def _st_num_layers(keys, pattern: str, offset: int) -> int:
     return max(found) + offset if found else 0
 
 
+_OACNNS_BLOCK_KEY = re.compile(
+    r"(?P<block>backbone\.enc\.\d+\.blocks\.\d+\.)(?P<part>l_w|proj)\.(?P<i>\d+|last)\."
+    r"(?P<rest>.*)")
+
+
+def _oacnns_last_proj(state_dict: Dict, to_last: bool) -> Dict:
+    """An OA-CNNs block's last projection renamed: ``proj.{S}`` (S the
+    block's scales, its count of ``l_w``) to the rules' ``proj.last``
+    (``to_last``), or back."""
+    scales: Dict[str, int] = {}
+    for key in state_dict:
+        m = _OACNNS_BLOCK_KEY.fullmatch(key)
+        if m and m.group("part") == "l_w":
+            scales[m.group("block")] = max(scales.get(m.group("block"), 0),
+                                           int(m.group("i")) + 1)
+    out = {}
+    for key, value in state_dict.items():
+        m = _OACNNS_BLOCK_KEY.fullmatch(key)
+        if m and m.group("part") == "proj":
+            last = str(scales[m.group("block")])
+            if m.group("i") == (last if to_last else "last"):
+                key = (f"{m.group('block')}proj.{'last' if to_last else last}."
+                       f"{m.group('rest')}")
+        out[key] = value
+    return out
+
+
 def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
     """JAX ``{params, batch_stats}`` tree -> torch state_dict."""
+    if "embedding_table" in tree.get("params", {}).get("backbone_module", {}):
+        # a model over a PPT backbone (PointGroup over PPT-v1m1 in backbone
+        # mode): the PPT's tree under ``backbone_module``, its state_dict
+        # under ``backbone.``
+        sd = jax_to_state_dict({coll: {k: v for k, v in tree.get(coll, {}).items()
+                                       if k != "backbone_module"}
+                                for coll in ("params", "batch_stats")})
+        inner = jax_to_state_dict({coll: tree.get(coll, {}).get("backbone_module", {})
+                                   for coll in ("params", "batch_stats")})
+        sd.update({f"backbone.{k}": v for k, v in inner.items()})
+        return sd
     sd: Dict[str, torch.Tensor] = {}
     paths = flatten_tree(tree.get("params", {}))
     num_layers = _st_num_layers(paths, r"backbone_module/layer(\d+)_block", 1)
@@ -636,7 +732,7 @@ def jax_to_state_dict(tree: Dict) -> Dict[str, torch.Tensor]:
                 break
             else:
                 raise KeyError(f"bridge: no torch name for JAX leaf {coll}/{path}")
-    return sd
+    return _oacnns_last_proj(sd, to_last=False) if family == "oacnns" else sd
 
 
 # PDNorm (PT-v2m3, SpUNet-v1m3, PT-v3): the JAX Dense "modulation" under a
@@ -719,12 +815,21 @@ def _stack_pd(state_dict):
 
 def state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """torch state_dict -> JAX ``{params, batch_stats}`` tree of numpy."""
+    if any(k.startswith("backbone.embedding_table.") for k in state_dict):
+        # a model over a PPT backbone (see ``jax_to_state_dict``)
+        tree = state_dict_to_jax({k: v for k, v in state_dict.items()
+                                  if not k.startswith("backbone.")})
+        inner = state_dict_to_jax({k[len("backbone."):]: v for k, v in state_dict.items()
+                                   if k.startswith("backbone.")})
+        return {coll: dict(tree[coll], backbone_module=inner[coll]) for coll in tree}
     flat: Dict[str, np.ndarray] = {}
     num_layers = _st_num_layers(state_dict, r"backbone\.layers\.(\d+)\.", 2)
     layer_start = 0
     family = _family(state_dict, 1)
     if family == "swin3d":
         num_layers, layer_start = _swin3d_layout(state_dict, jax_side=False)
+    elif family == "oacnns":
+        state_dict = _oacnns_last_proj(state_dict, to_last=True)
     # CAC's prototypes are its ``seg_head``; DefaultSegmentorV2's is a Linear
     root = dict(_PPT_ROOT_LEAVES)
     if any(k.startswith("feat_proj_layer.") for k in state_dict):

@@ -1,5 +1,8 @@
 # Copied from pointcloudpdf_tpu/datasets/utils.py; keep in step (but for
-# ``bucket_capacity`` past the largest bucket, which does not truncate here).
+# ``bucket_capacity`` past the largest bucket, which does not truncate here,
+# and the per-instance ``bbox``, a list of arrays here: the JAX collation
+# stacks it, which fails across samples of other instance counts, squeezes a
+# sample of one instance to (1, 8) and pads one of as many instances as points).
 """Batch collation: variable-length samples -> static padded buffers.
 
 The reference concatenates samples and tracks cumulative ``offset``
@@ -33,6 +36,9 @@ LABEL_KEYS = frozenset(
 # keys that are per-sample rather than per-point
 PER_SAMPLE_KEYS = frozenset({"category", "offset", "name", "split", "condition",
                              "min_coord", "weight_scalar"})
+# per-instance records (InstanceParser's (instances, 8) boxes): a list of the
+# samples' arrays
+PER_INSTANCE_KEYS = frozenset({"bbox"})
 
 DEFAULT_BUCKETS = tuple(
     [1024 * 2**i for i in range(8)] + [81920, 98304, 131072, 196608, 262144]
@@ -106,6 +112,8 @@ def padded_collate_fn(
         v0 = np.asarray(values[0]) if not isinstance(values[0], str) else values[0]
         if isinstance(v0, str):
             out[key] = list(values)
+        elif key in PER_INSTANCE_KEYS:
+            out[key] = [np.asarray(v) for v in values]
         elif key == "offset":
             pass  # re-derived from counts below
         elif _is_per_point(key, v0, counts[0]) and key not in PER_SAMPLE_KEYS:
@@ -129,7 +137,7 @@ def padded_collate_fn(
 
 
 def _is_per_point(key: str, value, count: int) -> bool:
-    if isinstance(value, str) or key in PER_SAMPLE_KEYS:
+    if isinstance(value, str) or key in PER_SAMPLE_KEYS or key in PER_INSTANCE_KEYS:
         return False
     value = np.asarray(value)
     return value.ndim >= 1 and value.shape[0] == count

@@ -11,4 +11,5 @@ from .misc import (
     IncrSegCheckpointLoader,
     PreciseEvaluator,
 )
-from .evaluator import SemSegEvaluator, OpenSegEvaluator, IncrSegEvaluator
+from .evaluator import (SemSegEvaluator, OpenSegEvaluator, IncrSegEvaluator,
+                        InsSegEvaluator)

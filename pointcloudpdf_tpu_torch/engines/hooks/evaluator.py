@@ -1,6 +1,6 @@
 """Per-epoch evaluation hooks (counterpart of
 ``pointcloudpdf_tpu/engines/hooks/evaluator.py``: ``SemSegEvaluator``,
-``OpenSegEvaluator`` and ``IncrSegEvaluator``).
+``OpenSegEvaluator``, ``IncrSegEvaluator`` and ``InsSegEvaluator``).
 
 The forward runs on the trainer's device; the IoU histogram and the
 AUPR/AUROC records are numpy on the host, with padded points carrying
@@ -11,6 +11,8 @@ summed over the ranks (each holds its part of the global batch's).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -326,3 +328,163 @@ def metric_triple(inter, target, iou_class, acc_class, sel):
     """(mIoU, mAcc, Acc) over the classes ``sel``."""
     return (float(np.mean(iou_class[sel])), float(np.mean(acc_class[sel])),
             float(inter[sel].sum() / max(target[sel].sum(), 1e-10)))
+
+
+@HOOKS.register_module()
+class InsSegEvaluator(HookBase):
+    """Instance segmentation mAP (the ScanNet protocol in the JAX package's
+    compact form; reference evaluator.py:591-968).
+
+    A val batch's forward runs on the trainer's device (``eval_step``); on
+    the host each scene's proposals come from the model's ``propose``
+    (radius-graph clustering of the shifted points) and its ground-truth
+    instances from ``instance`` by majority class, those of
+    ``segment_ignore_index`` left out.  Over several ranks the scenes are
+    gathered.  AP a class and IoU threshold (0.5:0.95:0.05, then 0.25) by
+    greedy score-ordered matching a scene (``class_ap``); the table of the
+    last evaluation stays in ``ap_table``.  The metric is AP50.
+    """
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = tuple(segment_ignore_index)
+        self.instance_ignore_index = instance_ignore_index
+        self.ap_table = None
+
+    def before_train(self):
+        self.num_classes = self.trainer.cfg.data.num_classes
+        self.valid_classes = [c for c in range(self.num_classes)
+                              if c not in self.segment_ignore_index]
+
+    def after_epoch(self):
+        if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader:
+            self.eval()
+
+    def eval(self):
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        scenes = []
+        for i, input_dict in enumerate(trainer.val_loader):
+            out = trainer.eval_step(trainer.device_batch(input_dict))
+            batch = self.batch_scenes(trainer.model, input_dict, out)
+            scenes += batch
+            trainer.logger.info(
+                f"Test: [{i + 1}/{len(trainer.val_loader)}] proposals "
+                f"{[len(s['classes']) for s in batch]}, clustering ms "
+                f"{[round(s['propose_ms'], 1) for s in batch]}")
+        all_scenes = [s for r in comm.all_gather(scenes) for s in r]
+        self.ap_table = ap_table(all_scenes, self.valid_classes)
+        m_ap, m_ap50, m_ap25 = ap_summary(self.ap_table)
+        trainer.logger.info(
+            f"Val result: mAP/AP50/AP25 {m_ap:.4f}/{m_ap50:.4f}/{m_ap25:.4f}.")
+        trainer.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        trainer.comm_info["current_metric_value"] = m_ap50
+        trainer.comm_info["current_metric_name"] = "AP50"
+
+    def batch_scenes(self, model, input_dict, out):
+        """A padded val batch's scenes on the host: each one's proposals
+        (masks, classes, scores; ``propose_ms`` the host's clustering time)
+        and ground-truth instances (``gt_masks``, ``gt_classes``)."""
+        seg_logits = out["seg_logits"].float().cpu().numpy()
+        bias_pred = out["bias_pred"].float().cpu().numpy()
+        coord = np.asarray(input_dict["coord"])
+        segment = np.asarray(input_dict["segment"])
+        instance = np.asarray(input_dict["instance"])
+        scenes = []
+        for b, n in enumerate(np.asarray(input_dict["count"]).tolist()):
+            t0 = time.perf_counter()
+            masks, classes, scores = model.propose(
+                coord[b, :n], seg_logits[b, :n], bias_pred[b, :n], np.ones(n, bool))
+            propose_ms = 1e3 * (time.perf_counter() - t0)
+            gt_masks, gt_classes = gt_instances(
+                instance[b, :n], segment[b, :n], self.num_classes,
+                self.segment_ignore_index, self.instance_ignore_index)
+            scenes.append(dict(masks=masks, classes=classes, scores=scores,
+                               gt_masks=gt_masks, gt_classes=gt_classes,
+                               propose_ms=propose_ms))
+        return scenes
+
+
+def gt_instances(instance, segment, num_classes, segment_ignore_index,
+                 instance_ignore_index):
+    """One scene's ground-truth instances: (masks (I, n) bool, classes (I,)),
+    each instance of the majority class of its labelled points, those of
+    ``segment_ignore_index`` (or with no labelled point) left out."""
+    masks, classes = [], []
+    for iid in np.unique(instance):
+        if iid == instance_ignore_index:
+            continue
+        m = instance == iid
+        labelled = segment[m][segment[m] >= 0]
+        cls = np.bincount(labelled, minlength=num_classes).argmax() if labelled.size else -1
+        if cls in segment_ignore_index:
+            continue
+        masks.append(m)
+        classes.append(int(cls))
+    return (np.stack(masks) if masks else np.zeros((0, len(instance)), bool),
+            np.asarray(classes, np.int64))
+
+
+# IoU thresholds of the AP table's rows: 0.5:0.95:0.05, then 0.25
+AP_OVERLAPS = np.append(np.arange(0.5, 0.96, 0.05), 0.25)
+
+
+def ap_table(scenes, valid_classes):
+    """AP (len(AP_OVERLAPS), classes) over the scenes; NaN for a class
+    without a ground-truth instance."""
+    table = np.zeros((len(AP_OVERLAPS), len(valid_classes)))
+    for oi, overlap in enumerate(AP_OVERLAPS):
+        for ci, cls in enumerate(valid_classes):
+            table[oi, ci] = class_ap(scenes, cls, overlap)
+    return table
+
+
+def ap_summary(table):
+    """(mAP over 0.5:0.95, AP50, AP25), NaN classes left out."""
+    return (float(np.nanmean(table[:-1])), float(np.nanmean(table[0])),
+            float(np.nanmean(table[-1])))
+
+
+def class_ap(scenes, cls, overlap):
+    """One class's AP at one IoU threshold: a scene's proposals of the
+    class in descending score each take the unmatched ground truth of the
+    highest IoU, a hit where that IoU reaches ``overlap``; the precision
+    envelope integrated over recall (VOC).  The JAX hook's ``_class_ap``."""
+    records = []   # (score, is_tp)
+    n_gt = 0
+    for sc in scenes:
+        gt_sel = np.where(sc["gt_classes"] == cls)[0]
+        n_gt += len(gt_sel)
+        pr_sel = np.where(sc["classes"] == cls)[0]
+        if len(pr_sel) == 0:
+            continue
+        order = pr_sel[np.argsort(-sc["scores"][pr_sel])]
+        matched = np.zeros(len(gt_sel), bool)
+        for p in order:
+            pm = sc["masks"][p]
+            best_iou, best_j = 0.0, -1
+            for j, g in enumerate(gt_sel):
+                if matched[j]:
+                    continue
+                gm = sc["gt_masks"][g]
+                iou = (pm & gm).sum() / max((pm | gm).sum(), 1)
+                if iou > best_iou:
+                    best_iou, best_j = iou, j
+            if best_iou >= overlap and best_j >= 0:
+                matched[best_j] = True
+                records.append((sc["scores"][p], 1))
+            else:
+                records.append((sc["scores"][p], 0))
+    if n_gt == 0:
+        return np.nan
+    if not records:
+        return 0.0
+    records.sort(key=lambda r: -r[0])
+    tp = np.cumsum([r[1] for r in records])
+    fp = np.cumsum([1 - r[1] for r in records])
+    recall = tp / n_gt
+    precision = tp / np.maximum(tp + fp, 1e-12)
+    rec = np.concatenate([[0.0], recall, [recall[-1]]])
+    pre = np.concatenate([[1.0], precision, [0.0]])
+    for k in range(len(pre) - 2, -1, -1):
+        pre[k] = max(pre[k], pre[k + 1])
+    return float(np.sum((rec[1:] - rec[:-1]) * pre[1:]))

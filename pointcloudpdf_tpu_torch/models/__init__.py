@@ -10,3 +10,5 @@ from . import point_transformer_v3  # registers PT-v3m1
 from . import point_prompt_training  # registers PPT-v1m1 / PPT-v1m2
 from . import swin3d  # registers Swin3D-v1m1
 from . import octformer  # registers OctFormer-v1m1
+from . import oacnns  # registers OACNNs / OACNNs-v1m1
+from . import point_group  # registers PG-v1m1

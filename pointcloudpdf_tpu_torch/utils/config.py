@@ -1,5 +1,8 @@
-# Copied from pointcloudpdf_tpu/utils/config.py; keep in step.  One departure:
-# ``Config`` pickles (``__reduce__``), as ``launch`` hands it to spawned ranks.
+# Copied from pointcloudpdf_tpu/utils/config.py; keep in step.  Two departures:
+# ``Config`` pickles (``__reduce__``), as ``launch`` hands it to spawned ranks,
+# and a config's ``from pointcloudpdf_tpu.X import ...`` reads the port's
+# ``pointcloudpdf_tpu_torch.X`` (the ScanNet200 configs import their class
+# names so; the JAX package's ``datasets`` imports jax).
 """Python-file configuration system.
 
 Configs are executable Python files whose top-level variables become the
@@ -23,6 +26,8 @@ from typing import Any, Dict, List, Optional
 
 DELETE_KEY = "_delete_"
 BASE_KEY = "_base_"
+# a config's imports of the JAX package read the port's module of that name
+JAX_PACKAGE, PORT_PACKAGE = "pointcloudpdf_tpu", "pointcloudpdf_tpu_torch"
 
 
 class ConfigDict(dict):
@@ -66,10 +71,14 @@ def _exec_pyfile(filename: str) -> Dict[str, Any]:
         raise FileNotFoundError(f"config file not found: {filename}")
     with open(filename, "r") as f:
         source = f.read()
-    ast.parse(source)  # raise a clean SyntaxError before exec
+    tree = ast.parse(source)  # raise a clean SyntaxError before exec
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.split(".")[0] == JAX_PACKAGE):
+            node.module = PORT_PACKAGE + node.module[len(JAX_PACKAGE):]
     module = types.ModuleType("_cfg_module")
     module.__file__ = filename
-    exec(compile(source, filename, "exec"), module.__dict__)
+    exec(compile(tree, filename, "exec"), module.__dict__)
     return {
         k: v
         for k, v in module.__dict__.items()

@@ -9,7 +9,10 @@ forward and step from the shipped S3DIS config and a CAC-v1m1 step over
 it, a narrow PT-v3m1 forward and step from the shipped S3DIS ``-rpe``
 config, one ``MultiDatasetTrainer`` step of a narrow PPT-v1m1 from the
 shipped S3DIS PPT config, narrow Swin3D and OctFormer forwards from the
-shipped S3DIS and ScanNet configs, and ``launch`` runs a
+shipped S3DIS and ScanNet configs, a narrow PointGroup step, eval forward
+and proposals from the shipped S3DIS PointGroup config (and the ScanNet200
+one loaded), a narrow OA-CNNs forward from the shipped ScanNet config, and
+``launch`` runs a
 gloo group of one (the data-parallel engine's collectives).  The port's
 own copy of the native voxel hash is held against the numpy branch here
 too.
@@ -322,6 +325,51 @@ for path, update, channels in (
     assert logits.shape == (2, n, wcfg.model.backbone.num_classes)
     assert torch.isfinite(logits).all() and (logits[1, 400:] == 0).all()
 
+# the shipped S3DIS PointGroup config at narrow widths: one DefaultTrainer
+# step (the model's loss and its three parts), an eval forward and the host
+# proposals (ops.cluster); the ScanNet200 PointGroup config loads (it imports
+# its class names by the JAX package's module path, read from the port)
+pg_cfg = default_config_parser(ROOT + "/configs/s3dis/insseg-pointgroup-v1m1-0-spunet-base.py")
+assert pg_cfg.model.type == "PG-v1m1"
+pg_cfg.model.backbone.update(base_channels=8, channels=(8, 8), layers=(1, 1))
+pg_cfg.model.backbone_out_channels = 8
+pg_cfg.merge_from_dict({"device": "cpu", "batch_size": 2, "num_worker": 0,
+                        "enable_amp": False, "evaluate": False, "hooks": [],
+                        "epoch": 2, "eval_epoch": 2})
+pg_cfg.data.train = dict(type="NoJaxScenes")
+pg = TRAINERS.build(dict(type="DefaultTrainer", cfg=pg_cfg))
+inst = (grid[..., 0] // 6) * 4 + grid[..., 1] // 6
+centroid = np.zeros((2, n, 3), np.float32)
+for b in range(2):
+    for iid in np.unique(inst[b]):
+        centroid[b][inst[b] == iid] = input_dict["coord"][b][inst[b] == iid].mean(0)
+pg_input = dict(sp_input, instance=inst.astype(np.int64), instance_centroid=centroid)
+pg.comm_info["input_dict"] = pg_input
+pg.run_step()
+assert set(pg.comm_info["model_output_dict"]) == {
+    "loss", "seg_loss", "bias_l1_loss", "bias_cosine_loss"}
+assert all(np.isfinite(float(v)) for v in pg.comm_info["model_output_dict"].values())
+with torch.inference_mode():
+    pg_out = pg.eval_step(pg.device_batch(pg_input))
+masks, classes, scores = pg.model.propose(
+    input_dict["coord"][0], pg_out["seg_logits"][0].numpy(), pg_out["bias_pred"][0].numpy(),
+    np.ones(n, bool))
+assert masks.shape[1:] == (n,) and len(classes) == len(scores)
+s200 = default_config_parser(ROOT + "/configs/scannet200/insseg-pointgroup-spunet-0-base.py")
+assert len(s200.data.names) == 200 and s200.model.segment_ignore_index == (-1, 0, 2)
+
+# the shipped ScanNet OA-CNNs config at narrow widths: an eval forward
+oa_cfg = default_config_parser(ROOT + "/configs/scannet/semseg-oacnns-v1m1-0-base.py")
+assert oa_cfg.model.backbone.type == "OACNNs"
+oa_cfg.model.backbone.update(embed_channels=8, enc_channels=(8, 16), enc_depth=(1, 1),
+                             dec_channels=(8, 16), point_grid_size=((2, 3), (2, 3)))
+torch.manual_seed(0)
+oa = build_model(dict(oa_cfg.model)).eval()
+with torch.inference_mode():
+    logits = oa(sp.device_batch(sp_input))["seg_logits"]
+assert logits.shape == (2, n, 20) and torch.isfinite(logits).all()
+assert (logits[1, 400:] == 0).all()
+
 from pointcloudpdf_tpu_torch.engines.launch import launch
 from pointcloudpdf_tpu_torch.utils import comm
 seen = []
@@ -354,6 +402,7 @@ def test_port_runs_without_jax():
     "tools/attn_bwd_compare_torch.py", "tools/st_attention_compare_torch.py",
     "tools/fps_compare_torch.py", "tools/kpconv_compare_torch.py",
     "tools/kpconv_clocks.py", "tools/ptv3_rpe_compare_torch.py",
+    "tools/insseg_cluster_time.py",
     "tests/test_torch_kernels.py",
     "tests/test_torch_fps_windows.py", "tests/test_torch_kpconv_tiles.py",
     "tests/torch_ddp_ranks.py"])

@@ -93,15 +93,19 @@ def profile_call(fn, host_ms, what, top=24):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds, launches = {}, {}
+    averages = prof.key_averages()
+    # the ranges' kernels are looked up (a walk over every event) where a
+    # range ran at all
+    ranges = {ev.key for ev in averages} & {"K1 prep", "K7 pack"}
     # (a record_function range shows on the device's timeline too: not a kernel)
-    kernels = [ev for ev in prof.key_averages()
+    kernels = [ev for ev in averages
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and device_us(ev) > 0 and ev.key not in ("K1 prep", "K7 pack")]
     for ev in kernels:
         k = kind_of(ev.key)
         kinds[k] = kinds.get(k, 0.0) + device_us(ev) / 1e3
         launches[k] = launches.get(k, 0) + ev.count
-    prep = range_kernels(prof, "K1 prep")
+    prep = range_kernels(prof, "K1 prep") if "K1 prep" in ranges else {}
     for name, (us, n) in prep.items():
         k = kind_of(name)
         if k not in K1_KINDS:
@@ -118,8 +122,8 @@ def profile_call(fn, host_ms, what, top=24):
           f"({sum(v[1] for v in prep.values())} launches)")
     # K7's parameter packing: host time of its ranges, device time of the
     # kernels launched inside them (counted in their kinds above)
-    pack = range_kernels(prof, "K7 pack")
-    pack_host = [ev for ev in prof.key_averages() if ev.key == "K7 pack"
+    pack = range_kernels(prof, "K7 pack") if "K7 pack" in ranges else {}
+    pack_host = [ev for ev in averages if ev.key == "K7 pack"
                  and ev.device_type == torch.autograd.DeviceType.CPU]
     k7_pack = {"host_ms": sum(ev.cpu_time_total for ev in pack_host) / 1e3,
                "calls": sum(ev.count for ev in pack_host),

@@ -1,7 +1,8 @@
 """Where one training step of the PyTorch port goes, on one GPU.
 
-    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2|spunet|ptv3|swin3d|octformer]
-        [--batch-size N] [--steps 3] [--out FILE]
+    python3 tools/profile_train_torch.py [--workload pt|st|incr|ptv2|spunet|ptv3|swin3d|octformer|
+                                          pointgroup|oacnns] [--batch-size N] [--steps 3]
+        [--out FILE]
 
 Builds synthetic S3DIS rooms (``chip_smoke.synthetic_room``) and a trainer
 on a shipped config at full width: ``pt`` (default) ``OpenSegTrainer`` on
@@ -15,14 +16,18 @@ SpUNet-v1m1 config (SGD, PolyLR, Mix3D 0.8, level capacity 0.5), ``ptv3``
 the same trainer on the S3DIS PT-v3m1 ``-rpe`` config (AdamW, OneCycleLR,
 Mix3D 0.8, drop path 0.3, level capacity 0.5), ``swin3d`` the S3DIS
 Swin3D-small config (AdamW, MultiStepLR, the ``blocks`` group, Mix3D 0.8,
-drop path 0.3) and ``octformer`` the ScanNet OctFormer config (AdamW,
+drop path 0.3), ``octformer`` the ScanNet OctFormer config (AdamW,
 Mix3D 0.8, drop path 0.5; its displacement projected on the normal,
-``chip_smoke.octformer_config``, over the rooms relabelled into ScanNet's
-layout, ``chip_smoke.scannet_layout``), the last three over rooms made as
-``chip_smoke.PTV3_ROOM`` makes them (with normals, at 2,800 points a square
-metre); autocast as each config ships.  The batch size is ``--batch-size``,
-else 16, and for ``ptv2``, ``spunet``, ``ptv3``, ``swin3d`` and
-``octformer`` the largest of
+``chip_smoke.octformer_config``), ``pointgroup`` the S3DIS PointGroup
+config (PointGroup over SpUNet-v1m1 at 4 cm, SGD, PolyLR, the model's own
+loss) and ``oacnns`` the ScanNet OA-CNNs config (AdamW, OneCycleLR, CE +
+Lovasz, Mix3D 0.8), ``octformer`` and ``oacnns`` over the rooms relabelled
+into ScanNet's layout (``chip_smoke.scannet_layout``), the last five over
+rooms made as ``chip_smoke.PTV3_ROOM`` makes them (with normals, at 2,800
+points a square metre; each plane and box an instance); autocast as each
+config ships.  The batch size is ``--batch-size``, else 16, and for the
+closed-set workloads (``ptv2``, ``spunet``, ``ptv3``, ``swin3d``,
+``octformer``, ``pointgroup``, ``oacnns``) the largest of
 ``chip_smoke.PTV2_TRAIN_BATCHES`` (12 shipped, 6, 3, 2, 1) that fits the
 card's memory.  Prints, for one fixed batch:
 milliseconds per train step
@@ -40,8 +45,10 @@ evaluator forward over the val room (K7 and K1 by the profiler); for
 ``ptv3`` also the step's cost of the RPE lookup and of the patch
 attention's core, for ``octformer`` that of the RPE lookup and for
 ``swin3d`` that of the cRSE terms, by taking each out (``ablations``); for
-``swin3d`` and ``octformer`` the valid and held rows of each level of the
-batch (``chip_smoke.window_levels``).  ``--out`` also
+``swin3d``, ``octformer`` and ``oacnns`` the valid and held rows of each
+level of the batch (``chip_smoke.window_levels``); for ``pointgroup`` the
+proposals of the val room and the host clustering's ms
+(``PointGroup.propose``).  ``--out`` also
 writes the numbers as JSON.
 Needs a CUDA device.
 """
@@ -122,7 +129,8 @@ def main():
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--workload", choices=("pt", "st", "incr", "ptv2", "spunet", "ptv3",
-                                               "swin3d", "octformer"), default="pt")
+                                               "swin3d", "octformer", "pointgroup", "oacnns"),
+                        default="pt")
     parser.add_argument("--batch-size", type=int, default=None)
     parser.add_argument("--out", default=None, help="write the numbers here as JSON")
     parser.add_argument("--steps", type=int, default=3)
@@ -146,10 +154,15 @@ def main():
         "spunet": (chip_smoke.SPUNET_CONFIG, "DefaultTrainer"),
         "ptv3": (chip_smoke.PTV3_CONFIG, "DefaultTrainer"),
         "swin3d": (chip_smoke.SWIN3D_CONFIG, "DefaultTrainer"),
-        "octformer": (chip_smoke.OCTFORMER_CONFIG, "DefaultTrainer")}[args.workload]
-    closed_set = args.workload in ("ptv2", "spunet", "ptv3", "swin3d", "octformer")
-    window = args.workload in ("swin3d", "octformer")
-    room = chip_smoke.PTV3_ROOM if args.workload in ("ptv3", "swin3d", "octformer") else {}
+        "octformer": (chip_smoke.OCTFORMER_CONFIG, "DefaultTrainer"),
+        "pointgroup": (chip_smoke.PG_CONFIG, "DefaultTrainer"),
+        "oacnns": (chip_smoke.OACNNS_CONFIG, "DefaultTrainer")}[args.workload]
+    closed_set = args.workload in ("ptv2", "spunet", "ptv3", "swin3d", "octformer",
+                                   "pointgroup", "oacnns")
+    window = args.workload in ("swin3d", "octformer", "oacnns")
+    scannet = args.workload in ("octformer", "oacnns")
+    room = (chip_smoke.PTV3_ROOM if args.workload in ("ptv3", "swin3d", "octformer",
+                                                      "pointgroup", "oacnns") else {})
     sizes = ([args.batch_size] if args.batch_size else
              list(chip_smoke.PTV2_TRAIN_BATCHES) if closed_set else [16])
     result = {"card": card, "workload": args.workload, "config": os.path.relpath(config, ROOT)}
@@ -165,6 +178,7 @@ def main():
                                   **room)
         if args.workload == "octformer":
             config = chip_smoke.octformer_config(work)
+        if scannet:
             data_root, _ = chip_smoke.scannet_layout(work, data_root)
         open_set = trainer_type == "OpenSegTrainer"
         result["batch_sizes_out_of_memory"] = []
@@ -174,7 +188,7 @@ def main():
                 "data.val.data_root": data_root, "save_path": os.path.join(work, "exp"),
                 "device": "cuda", "batch_size": batch_size, "num_worker": 0,
                 "evaluate": closed_set, "hooks": [], "seed": 0}
-            if args.workload == "octformer":
+            if scannet:
                 options["data.train.split"] = (f"Batch{batch_size}",)
             if args.no_amp:
                 options["enable_amp"] = False
@@ -284,6 +298,17 @@ def main():
             result["eval_forward"] = dict(prof, ms_events=eval_ms)
             print(f"evaluator forward ({result['eval_shape']}): {eval_ms:.1f} ms; "
                   f"launches {result['launches_an_eval_forward']}")
+            if args.workload == "pointgroup":
+                # the host clustering of the val room (the evaluator's propose)
+                out = trainer.eval_step(val)
+                n = int(val["mask"].sum())
+                t0 = time.perf_counter()
+                _, classes, _ = trainer.model.propose(*(
+                    t[0, :n].float().cpu().numpy() for t in (
+                        val["coord"], out["seg_logits"], out["bias_pred"])), np.ones(n, bool))
+                result["propose"] = dict(points=n, proposals=len(classes),
+                                         ms=(time.perf_counter() - t0) * 1e3)
+                print(f"host clustering of the val room: {result['propose']}")
             write_result(result, args.out)
             return
 
