@@ -199,7 +199,29 @@ Phases, in order; any failure exits non-zero:
    forward, its levels, one forward timed; (d) ``tools/train_torch.py`` on
    it at full width (the largest of 12, 6, 3, 2, 1; AdamW, OneCycleLR, CE +
    Lovasz, autocast and Mix3D as shipped), the evaluator,
-   ``tools/test_torch.py`` on the checkpoint, one step timed.
+   ``tools/test_torch.py`` on the checkpoint, one step timed;
+18. outdoor LiDAR, over seeded synthetic scans written in each dataset's
+   layout (``lidar_scan``: a spinning LiDAR's rings cast against a ground
+   plane, boxes, poles and a square of walls; SemanticKITTI 64 beams,
+   120,000 points to 34 m; nuScenes 32 beams, 35,008 points to 60 m; Waymo
+   64 beams, 169,984 points to 74 m, 2,960 cells at 5 cm): (a)
+   ``tools/test_torch.py`` on the shipped SemanticKITTI PT-v2m2 config (K7
+   seventeen times a forward by width, K1 five, both K1 kernels, nothing
+   dropped), the largest fragment again on the plain versions and, on a
+   crop, on the CPU, its forward timed and profiled with K7's shapes; (b)
+   ``tools/train_torch.py`` on the SemanticKITTI SpUNet config at full
+   width (the largest of 12, 6, 3, 2, 1; SGD with Nesterov, OneCycleLR,
+   autocast and Mix3D as shipped), the evaluator, ``tools/test_torch.py``
+   on the checkpoint, one step timed; (c) the Waymo SpUNet config's tester
+   on a scan past 2,048 cells in x and y: the largest fragment's voxel maps
+   on the card bit-equal to the CPU's, its logits on a band along x within
+   1e-4 x max |logit| of the CPU's; (d) a step each of MinkUNet34C, the
+   SemanticKITTI PT-v3m1 config (its tied curve cells counted) and the
+   nuScenes SpUNet config, and three ``MultiDatasetTrainer`` steps of the
+   SemanticKITTI PPT-v1m1 config, one a dataset; (e) the SemanticKITTI
+   benchmark-submit tester on a test scan without labels, its
+   ``submit/.../*.label`` one raw id a point.  Runs alone from a script
+   that builds the kernels and calls ``run_outdoor_slice(work)``.
 
 Each phase prints its wall time.  The next-to-last line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1423,6 +1445,26 @@ def run_tool(tool, argv):
     return "\n".join(lines)
 
 
+def fragment_against_plain(tester, fragment):
+    """A test fragment's forward on the kernels against the plain versions,
+    both on the card: logits within ``TOL_LOGITS`` x max |logit|, argmax
+    agreement >= 99.9%.  Returns both outputs."""
+    from pointcloudpdf_tpu_torch.ops import _cuda
+
+    out = tester.forward_fragment(fragment)
+    with _cuda.plain_versions():
+        ref = tester.forward_fragment(fragment)
+    lmax = float(np.abs(ref["seg_logits"]).max())
+    lerr = float(np.abs(out["seg_logits"] - ref["seg_logits"]).max())
+    agree = float((out["seg_logits"].argmax(-1)
+                   == ref["seg_logits"].argmax(-1)).mean())
+    print(f"  fragment of {len(fragment['coord'])} points, kernels against plain versions: "
+          f"logits err {lerr:.3e} (max |logit| {lmax:.3e}), argmax agreement {agree:.6f}")
+    expect(lerr <= TOL_LOGITS * lmax, f"seg_logits within {TOL_LOGITS} x max |logit|")
+    expect(agree >= 0.999, "argmax agreement >= 99.9%")
+    return out, ref
+
+
 def run_slice(work, config, name, per_forward=None, gva_by_width=None,
               fragment_check=None, room=None):
     """A serving slice end to end on ``config``: the tester over the
@@ -1517,17 +1559,7 @@ def run_slice(work, config, name, per_forward=None, gva_by_width=None,
     print(f"  fragments: {len(sizes)}, points min {min(sizes)} max {max(sizes)}")
     expect(max(sizes) >= MIN_FRAGMENT, f"a fragment holds >= {MIN_FRAGMENT} points")
     fragment = scene["fragment_list"][int(np.argmax(sizes))]
-    out = tester.forward_fragment(fragment)
-    with _cuda.plain_versions():
-        ref = tester.forward_fragment(fragment)
-    lmax = float(np.abs(ref["seg_logits"]).max())
-    lerr = float(np.abs(out["seg_logits"] - ref["seg_logits"]).max())
-    agree = float((out["seg_logits"].argmax(-1)
-                   == ref["seg_logits"].argmax(-1)).mean())
-    print(f"  fragment of {max(sizes)} points: logits err {lerr:.3e} "
-          f"(max |logit| {lmax:.3e}), argmax agreement {agree:.6f}")
-    expect(lerr <= TOL_LOGITS * lmax, f"seg_logits within {TOL_LOGITS} x max |logit|")
-    expect(agree >= 0.999, "argmax agreement >= 99.9%")
+    out, ref = fragment_against_plain(tester, fragment)
     if open_set:
         serr = float(np.abs(out["score"] - ref["score"]).max())
         expect(serr <= TOL_SCORE, f"score within {TOL_SCORE}: {serr:.3e}")
@@ -1589,22 +1621,25 @@ def make_train_rooms(work, name="s3dis_train", **room):
 
 
 def train_with_fallback(work, config, name, data_root, epochs, options,
-                        subsample=True, sizes=(16, 8, 4, 2), areas=None, iterations=2):
+                        subsample=True, sizes=(16, 8, 4, 2), areas=None, iterations=2,
+                        samples=None):
     """``tools/train_torch.py`` on ``config`` at the largest batch size of
     ``sizes`` (the first the shipped one) that fits the card's memory, with
     the launch counts and the pooling capacity's drop count set to 0 just
     before the run that fits; with ``subsample`` (an open-set trainer)
     ``iterations`` an epoch at any batch size, with ``areas`` (a function of
     the batch size giving the train split under ``data_root``) as many as
-    that split's rooms fill.  Returns (log, batch size, iterations an
-    epoch, wall s, launches, peak GiB, save_path)."""
+    that split's rooms fill, with ``samples`` (the train split's sample
+    count; no split option) as many as they fill.  Returns (log, batch
+    size, iterations an epoch, wall s, launches, peak GiB, save_path)."""
     import torch
 
     from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2
 
     for batch_size in sizes:
         split = TRAIN_AREAS if areas is None else areas(batch_size)
-        rooms = sum(len(glob.glob(os.path.join(data_root, a, "*.npz"))) for a in split)
+        rooms = samples if samples is not None else sum(
+            len(glob.glob(os.path.join(data_root, a, "*.npz"))) for a in split)
         iters = iterations if subsample else rooms // batch_size
         save_path = os.path.join(work, f"exp_{name}_b{batch_size}")
         argv = ["--config-file", config, "--device", DEVICE, "--options",
@@ -2985,7 +3020,8 @@ def check_fragment_maps(tester, fragment, batch, name="SpUNet",
     sorts), and its logits on the card are within ``tol`` of max |logit| of
     the port's CPU forward, under each of ``conditions`` (the batch's own
     where None); with ``cpu_crop`` the logits of that share of the fragment
-    (``crop_fragment``: the script's time limit).  Returns each condition's
+    (``crop_fragment``: the script's time limit), or of the fragment that
+    ``cpu_crop(fragment)`` returns.  Returns each condition's
     logits' class count."""
     import copy
 
@@ -3001,7 +3037,9 @@ def check_fragment_maps(tester, fragment, batch, name="SpUNet",
         maps = backbone.index_maps(batch["grid_coord"], batch["mask"])
         ref = cpu_model.backbone.index_maps(cpu_batch["grid_coord"], cpu_batch["mask"])
     if cpu_crop is not None:
-        batch = tester.device_batch(padded_collate_fn([crop_fragment(fragment, cpu_crop)]))
+        part = (cpu_crop(fragment) if callable(cpu_crop)
+                else crop_fragment(fragment, cpu_crop))
+        batch = tester.device_batch(padded_collate_fn([part]))
         cpu_batch = {k: v.cpu() if torch.is_tensor(v) else v for k, v in batch.items()}
         print(f"  logits compared on a crop of {int(batch['mask'].sum())} points")
     compared = [(f"{key}[{i}]", a, b) for key in keys
@@ -4040,8 +4078,12 @@ def train_window_model(work, config, name, data_root, test_root,
     """``tools/train_torch.py`` on ``config`` at full width at the largest
     batch of ``sizes`` that fits (one epoch of two steps and
     the evaluator; autocast, Mix3D and drop path as shipped), then one
-    batch's step profiled with its levels' rows.  Returns (launches, step);
-    the step's ``save_path`` is the training run's."""
+    batch's step profiled with its levels' rows, at that batch size or,
+    where its batch does not fit (Mix3D and the crops draw the memory
+    anew: OA-CNNs' 6 fitted a training run once and not its profiled
+    batch), the next that fits.  Returns (launches, step); the step's
+    ``save_path`` is the training run's, its ``batch_size`` the profiled
+    one, ``train_batch_size`` the run's."""
     import re
 
     import torch
@@ -4057,9 +4099,20 @@ def train_window_model(work, config, name, data_root, test_root,
     expect("Val result: mIoU/mAcc/allAcc" in log, "the evaluator ran")
     gc.collect()
     torch.cuda.empty_cache()
-    step = profile_train_step(work, data_root, batch_size, config, name, report=window_levels)
+    for size in [b for b in sizes if b <= batch_size]:
+        try:
+            step = profile_train_step(work, data_root, size, config, name, report=window_levels)
+        except torch.cuda.OutOfMemoryError:
+            print(f"  {name}: the profiled batch of {size} does not fit the card's memory")
+        else:
+            break
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise SmokeFailure(f"{name}: no profiled batch fits the card's memory")
     print(f"  {name} step levels: valid rows {step['valid_rows']}, held {step['held_rows']}")
-    step.update(batch_size=batch_size, train_peak=peak, train_wall=wall, save_path=save_path)
+    step.update(batch_size=size, train_batch_size=batch_size, train_peak=peak, train_wall=wall,
+                save_path=save_path)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, step
@@ -4394,6 +4447,662 @@ def run_insseg_slice(work):
     return pg, dict(oa_step, serving=oa_serving)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: outdoor LiDAR (SemanticKITTI, nuScenes, Waymo).  K1 and K7 run in
+# PT-v2m2's eval forward on a scan; SpUNet, MinkUNet34C, PT-v3 and PPT are
+# phases 13-15's plain PyTorch, at the port's keys of 20 bits an axis
+
+SK_DIR = os.path.join(ROOT, "configs", "semantic_kitti")
+SK_PTV2_CONFIG = os.path.join(SK_DIR, "semseg-pt-v2m2-0-base.py")
+SK_SUBMIT_CONFIG = os.path.join(SK_DIR, "semseg-pt-v2m2-1-benchmark-submit.py")
+SK_SPUNET_CONFIG = os.path.join(SK_DIR, "semseg-spunet-v1m1-0-base.py")
+SK_MINK_CONFIG = os.path.join(SK_DIR, "semseg-minkunet34c-0-base.py")
+SK_PTV3_CONFIG = os.path.join(SK_DIR, "semseg-pt-v3m1-0-base.py")
+SK_PPT_CONFIG = os.path.join(SK_DIR, "semseg-ppt-v1m1-0-sk-nu-wa-spunet.py")
+NU_SPUNET_CONFIG = os.path.join(ROOT, "configs", "nuscenes", "semseg-spunet-v1m1-0-base.py")
+WAYMO_SPUNET_CONFIG = os.path.join(ROOT, "configs", "waymo", "semseg-spunet-v1m1-0-base.py")
+# each dataset's spinning LiDAR: beams and their elevations (degrees, top to
+# bottom), the sensor's height (m), azimuth steps a turn (SemanticKITTI's
+# HDL-64E 120,000 points a scan, nuScenes' HDL-32E 35,008, Waymo's top
+# LiDAR 169,984), the half side (m) of the square of walls that every ray
+# meets (inside the configs' PointClip, which clamps coordinates: a point
+# past it would land on the clip's faces; nuScenes' at 60 m and Waymo's at
+# 74 m, 2,400 and 2,960 cells at 5 cm, past the JAX keys' 2,048) and the
+# train classes
+LIDARS = {
+    "SemanticKITTI": dict(beams=64, elevation=(2.0, -24.8), height=1.73, steps=1875,
+                          walls=34.0, classes=19),
+    "nuScenes": dict(beams=32, elevation=(10.0, -30.0), height=1.84, steps=1094,
+                     walls=60.0, classes=16),
+    "Waymo": dict(beams=64, elevation=(2.4, -17.6), height=2.1, steps=2656,
+                  walls=74.0, classes=22),
+}
+# PT-v2m2's launches a forward on the SemanticKITTI config (patch embedding
+# 1 block, encoder 2 + 2 + 6 + 2, decoder 1 + 1 + 1 + 1): K7 once a block, K1
+# once a level (the patch level and four pooled ones)
+SK_PTV2_PER_FORWARD = {"gva": 1 + (2 + 2 + 6 + 2) + (1 + 1 + 1 + 1), "knn": 5}
+# ... K7's by width: 48 the patch embedding and decoder 0, then a stage and
+# the decoder above it; 512 stage 4 (64 groups)
+SK_PTV2_K7_BY_WIDTH = {48: 1 + 1, 96: 2 + 1, 192: 2 + 1, 384: 6 + 1, 512: 2}
+SK_TRAIN_SCANS = 2     # distinct SemanticKITTI train scans ...
+SK_TRAIN_LINKS = 24    # ... linked into this many frames: two batches of the shipped 12
+OUTDOOR_STEP_BATCH = 2  # phase 18(d)'s steps (else 1, where 2 does not fit)
+WAYMO_BAND = 0.5       # m either side of the sensor's y: phase 18(c)'s CPU crop
+
+
+def lidar_scene(rng, lidar):
+    """Boxes (x0, y0, z0, x1, y1, z1) and vertical poles (x, y, radius,
+    top) around a sensor at the origin, over a ground plane at -height, each
+    with a train class: a square of walls at the half side ``walls`` (high
+    enough for the top beam at the corners), 30 boxes (cars, blocks) and 20
+    poles and trunks inside it; the ground cut into one azimuth sector a
+    class, so that every class is hit."""
+    h, w, n_cls = lidar["height"], lidar["walls"], lidar["classes"]
+    top = h + 2 ** 0.5 * w * np.tan(np.deg2rad(lidar["elevation"][0])) + 3.0
+    boxes = []
+    for e in np.linspace(-w, w, 5)[:-1]:
+        f = e + w / 2
+        boxes += [(e, w, -h, f, w + 1, top), (e, -w - 1, -h, f, -w, top),
+                  (w, e, -h, w + 1, f, top), (-w - 1, e, -h, -w, f, top)]
+    n = 30
+    r, a = rng.uniform(5.0, 0.8 * w, n), rng.uniform(0, 2 * np.pi, n)
+    size = rng.uniform((1.5, 1.5, 1.2), (4.5, 2.5, 3.5), (n, 3))
+    centre = np.stack([r * np.cos(a), r * np.sin(a)], 1)
+    boxes += [(cx - sx / 2, cy - sy / 2, -h, cx + sx / 2, cy + sy / 2, -h + sz)
+              for (cx, cy), (sx, sy, sz) in zip(centre, size)]
+    m = 20
+    r, a = rng.uniform(4.0, 0.8 * w, m), rng.uniform(0, 2 * np.pi, m)
+    poles = np.stack([r * np.cos(a), r * np.sin(a), rng.uniform(0.08, 0.4, m),
+                      -h + rng.uniform(3.0, 8.0, m)], 1)
+    boxes = np.asarray(boxes, np.float64)
+    return dict(boxes=boxes, poles=poles, height=h,
+                ground=rng.permutation(n_cls),
+                classes=rng.randint(0, n_cls, len(boxes) + len(poles)))
+
+
+def cast_rays(dirs, scene, chunk=1 << 15):
+    """Unit directions (R, 3) from the sensor -> (range (R,), what each ray
+    met first (R,): -1 the ground, then the boxes, then the poles; -2
+    nothing)."""
+    boxes, poles, h = scene["boxes"], scene["poles"], scene["height"]
+    t_all = np.full(len(dirs), np.inf)
+    hit_all = np.full(len(dirs), -2)
+    for s in range(0, len(dirs), chunk):
+        d = dirs[s:s + chunk].astype(np.float64)
+        r = np.arange(len(d))
+        t = np.where(d[:, 2] < 0, -h / np.minimum(d[:, 2], -1e-12), np.inf)
+        hit = np.where(np.isfinite(t), -1, -2)
+        inv = 1.0 / np.where(np.abs(d) < 1e-12, 1e-12, d)
+        t1, t2 = boxes[None, :, :3] * inv[:, None], boxes[None, :, 3:] * inv[:, None]
+        near = np.minimum(t1, t2).max(-1)
+        far = np.maximum(t1, t2).min(-1)
+        tb = np.where((far >= near) & (near > 0), near, np.inf)
+        j = tb.argmin(1)
+        closer = tb[r, j] < t
+        t, hit = np.where(closer, tb[r, j], t), np.where(closer, j, hit)
+        # vertical cylinders: |(dx, dy) t - (cx, cy)| = radius, z within the pole
+        a = (d[:, :2] ** 2).sum(1)[:, None]
+        b = -2 * (d[:, :1] * poles[None, :, 0] + d[:, 1:2] * poles[None, :, 1])
+        c = (poles[:, 0] ** 2 + poles[:, 1] ** 2 - poles[:, 2] ** 2)[None]
+        disc = b * b - 4 * a * c
+        tp = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * np.maximum(a, 1e-12))
+        z = d[:, 2:3] * tp
+        tp = np.where((disc >= 0) & (tp > 0) & (z >= -h) & (z <= poles[None, :, 3]), tp, np.inf)
+        j = tp.argmin(1)
+        closer = tp[r, j] < t
+        t = np.where(closer, tp[r, j], t)
+        hit = np.where(closer, len(boxes) + j, hit)
+        t_all[s:s + chunk], hit_all[s:s + chunk] = t, hit
+    return t_all, hit_all
+
+
+def lidar_scan(rng, name, beams=None, steps=None):
+    """A seeded scan of dataset ``name``'s LiDAR (``LIDARS``; ``beams`` and
+    ``steps`` override its ray count) cast against a fresh ``lidar_scene``:
+    dense near the sensor, sparse far away.  Returns coord (N, 3) float32 in
+    the sensor's frame, the beam of each point, its train class and its
+    instance (0 on the ground, else its object's index + 1)."""
+    lidar = LIDARS[name]
+    beams, steps = beams or lidar["beams"], steps or lidar["steps"]
+    scene = lidar_scene(rng, lidar)
+    el = np.deg2rad(np.linspace(*lidar["elevation"], beams))
+    az = (np.arange(steps) + rng.rand(steps) * 0.5) * (2 * np.pi / steps)
+    el, az = np.meshgrid(el + rng.normal(0, 1e-4, beams), az, indexing="ij")
+    dirs = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)],
+                    -1).reshape(-1, 3)
+    t, hit = cast_rays(dirs, scene)
+    expect(bool((hit > -2).all()), f"every ray of the {name} scan met the scene")
+    t = t + rng.normal(0, 0.01, t.shape)
+    coord = (dirs * t[:, None]).astype(np.float32)
+    sector = (np.arctan2(coord[:, 1], coord[:, 0]) % (2 * np.pi)
+              * (len(scene["ground"]) / (2 * np.pi))).astype(np.int64)
+    sector = np.minimum(sector, len(scene["ground"]) - 1)
+    label = np.where(hit < 0, scene["ground"][sector],
+                     scene["classes"][np.maximum(hit, 0)])
+    instance = np.where(hit < 0, 0, hit + 1)
+    beam = np.repeat(np.arange(beams), steps)
+    return coord, beam, label.astype(np.int64), instance.astype(np.int64)
+
+
+def unlabelled(rng, n, share=0.02):
+    """A seeded ``share`` of ``n`` points, left without a class."""
+    return rng.rand(n) < share
+
+
+def label_path(scan_path):
+    """A SemanticKITTI or Waymo scan's label file, as their datasets find it."""
+    return scan_path.replace("velodyne", "labels").replace(".bin", ".label")
+
+
+def write_semantic_kitti(root, seq, frame, scan, rng, labels=True):
+    """A scan in SemanticKITTI's layout under ``root``
+    (``dataset/sequences/{seq}/velodyne/{frame}.bin``: x, y, z, remission
+    as float32; ``labels/{frame}.label``: uint32, the raw class in the
+    lower 16 bits and the instance in the upper 16, some points raw 0 or
+    99, both unlabelled).  Returns the .bin's path."""
+    from pointcloudpdf_tpu_torch.datasets.semantic_kitti import _TRAIN_TO_RAW
+
+    coord, _, label, instance = scan
+    seq_dir = os.path.join(root, "dataset", "sequences", f"{seq:02d}")
+    for sub in ("velodyne", "labels"):
+        os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+    path = os.path.join(seq_dir, "velodyne", f"{frame:06d}.bin")
+    np.concatenate([coord, rng.rand(len(coord), 1)], 1).astype(np.float32).tofile(path)
+    if labels:
+        raw = np.array([_TRAIN_TO_RAW[c] for c in range(19)], np.uint32)[label]
+        off = unlabelled(rng, len(raw))
+        raw[off] = rng.choice(np.array([0, 99], np.uint32), int(off.sum()))
+        (raw | (instance.astype(np.uint32) << 16)).tofile(label_path(path))
+    return path
+
+
+def write_nuscenes(root, split, scans, rng, labels=True, sweeps=10):
+    """Scans in nuScenes' layout under ``root``: ``raw/samples/LIDAR_TOP/``
+    bins of x, y, z, intensity (0-255), ring as float32, ``raw/lidarseg/``
+    uint8 lidarseg ids (some 0, unlabelled) and the info pickle
+    ``info/nuscenes_infos_{sweeps}sweeps_{split}.pkl`` listing them
+    (without ``gt_segment_path`` where ``labels`` is false)."""
+    import pickle
+
+    from pointcloudpdf_tpu_torch.datasets.nuscenes import _RAW_TO_TRAIN
+
+    to_raw = {}
+    for raw, train_id in sorted(_RAW_TO_TRAIN.items()):
+        if train_id is not None:
+            to_raw.setdefault(train_id, raw)
+    lut = np.array([to_raw[c] for c in range(16)], np.uint8)
+    infos = []
+    for i, (coord, beam, label, _) in enumerate(scans):
+        token = f"{split}{i:04d}"
+        info = dict(lidar_token=token, lidar_path=f"samples/LIDAR_TOP/{token}.pcd.bin")
+        path = os.path.join(root, "raw", info["lidar_path"])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.concatenate([coord, rng.uniform(0, 255, (len(coord), 1)), beam[:, None]],
+                       1).astype(np.float32).tofile(path)
+        if labels:
+            info["gt_segment_path"] = f"lidarseg/v1.0-trainval/{token}_lidarseg.bin"
+            seg = lut[label]
+            seg[unlabelled(rng, len(seg))] = 0
+            path = os.path.join(root, "raw", info["gt_segment_path"])
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            seg.tofile(path)
+        infos.append(info)
+    os.makedirs(os.path.join(root, "info"), exist_ok=True)
+    with open(os.path.join(root, "info", f"nuscenes_infos_{sweeps}sweeps_{split}.pkl"),
+              "wb") as f:
+        pickle.dump(infos, f)
+
+
+def write_waymo(root, split, seq, frame, scan, rng):
+    """A scan in the preprocessed Waymo layout under ``root``
+    (``{split}/{seq}/velodyne/{frame}.bin``: x, y, z, intensity as float32;
+    ``labels/{frame}.label``: int32 pairs (instance, class + 1), some class
+    0, unlabelled).  Returns the .bin's path."""
+    coord, _, label, instance = scan
+    path = os.path.join(root, split, seq, "velodyne", f"{frame:06d}.bin")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    os.makedirs(os.path.dirname(path).replace("velodyne", "labels"), exist_ok=True)
+    np.concatenate([coord, rng.exponential(0.3, (len(coord), 1))], 1).astype(
+        np.float32).tofile(path)
+    cls = label + 1
+    cls[unlabelled(rng, len(cls))] = 0
+    np.stack([instance, cls], 1).astype(np.int32).tofile(label_path(path))
+    return path
+
+
+def outdoor_data(work):
+    """Phase 18's seeded scans under ``work/outdoor``: SemanticKITTI (seq 00
+    ``SK_TRAIN_SCANS`` scans linked into ``SK_TRAIN_LINKS`` frames, seq 08 a
+    val scan, seq 11 a test scan without labels), nuScenes (a train scan
+    listed twice, a val scan) and Waymo (a training scan linked into two
+    frames, a validation scan).  The training transforms draw each item's
+    augmentation and crop anew.
+    Returns the roots and the SemanticKITTI val and test scans' point
+    counts."""
+    rng = np.random.RandomState(SEED + 18)
+    root = os.path.join(work, "outdoor")
+    roots = {name: os.path.join(root, name) for name in ("semantic_kitti", "nuscenes", "waymo")}
+    t0 = time.perf_counter()
+    sk = roots["semantic_kitti"]
+    paths = [write_semantic_kitti(sk, 0, i, lidar_scan(rng, "SemanticKITTI"), rng)
+             for i in range(SK_TRAIN_SCANS)]
+    for i in range(SK_TRAIN_SCANS, SK_TRAIN_LINKS):
+        src = paths[i % SK_TRAIN_SCANS]
+        dst = os.path.join(os.path.dirname(src), f"{i:06d}.bin")
+        for a, b in ((src, dst), (label_path(src), label_path(dst))):
+            os.link(a, b)
+    counts = {}
+    for split, seq in (("val", 8), ("test", 11)):
+        scan = lidar_scan(rng, "SemanticKITTI")
+        write_semantic_kitti(sk, seq, 0, scan, rng, labels=split == "val")
+        counts[split] = len(scan[0])
+    write_nuscenes(roots["nuscenes"], "train", [lidar_scan(rng, "nuScenes")] * 2, rng)
+    write_nuscenes(roots["nuscenes"], "val", [lidar_scan(rng, "nuScenes")], rng)
+    src = write_waymo(roots["waymo"], "training", "segment-0", 0, lidar_scan(rng, "Waymo"),
+                      rng)
+    dst = os.path.join(os.path.dirname(src), f"{1:06d}.bin")
+    for a, b in ((src, dst), (label_path(src), label_path(dst))):
+        os.link(a, b)
+    write_waymo(roots["waymo"], "validation", "segment-1", 0, lidar_scan(rng, "Waymo"), rng)
+    print(f"  scans written in {time.perf_counter() - t0:.1f} s: SemanticKITTI "
+          f"{SK_TRAIN_SCANS} train ({SK_TRAIN_LINKS} frames), val and test of "
+          f"{LIDARS['SemanticKITTI']['beams'] * LIDARS['SemanticKITTI']['steps']} points; "
+          f"nuScenes 1 + 1 of "
+          f"{LIDARS['nuScenes']['beams'] * LIDARS['nuScenes']['steps']}; Waymo 1 + 1 of "
+          f"{LIDARS['Waymo']['beams'] * LIDARS['Waymo']['steps']}")
+    return roots, counts
+
+
+def curve_ties(grid, mask):
+    """PT-v3's curve codes clip each axis at 1,023 (ROADMAP §3 item 17):
+    (voxels with an axis past 1,023, voxels whose clipped cell another voxel
+    of the sample shares) over a batch's (B, N, 3) grid."""
+    past = tied = 0
+    for g, m in zip(np.asarray(grid), np.asarray(mask, bool)):
+        g = g[m]
+        past += int((g > 1023).any(1).sum())
+        tied += len(g) - len(np.unique(np.minimum(g, 1023), axis=0))
+    return past, tied
+
+
+def config_with_roots(config, roots, options):
+    """``config`` parsed with every dataset's ``data_root`` at ``roots``
+    (by dataset type; a PPT config's three train datasets too) and
+    ``options``."""
+    from pointcloudpdf_tpu_torch.engines import default_config_parser
+
+    by_type = {"SemanticKITTIDataset": roots["semantic_kitti"],
+               "NuScenesDataset": roots["nuscenes"], "WaymoDataset": roots["waymo"]}
+    cfg = default_config_parser(config, options)
+    for split in ("train", "val", "test"):
+        ds = cfg.data.get(split)
+        if ds is None:
+            continue
+        for d in ds.get("datasets", [ds]):
+            d.data_root = by_type[d.type]
+    return cfg
+
+
+def outdoor_steps(work, config, name, roots, steps=1, sizes=(OUTDOOR_STEP_BATCH, 1),
+                  timed=False):
+    """``steps`` training steps of ``config`` at full width at the first
+    batch size of ``sizes`` that fits the card, on its own loader's batches
+    (a PPT config's ``MultiDatasetTrainer`` draws one dataset a batch),
+    autocast and Mix3D as shipped: finite losses, no kernel of K1-K7, the
+    peak; with ``timed`` the last batch's step again, three times by CUDA
+    events after a warm-up."""
+    import torch
+
+    for batch_size in sizes:
+        try:
+            out = steps_at(work, config, name, roots, steps, batch_size, timed)
+        except torch.cuda.OutOfMemoryError:
+            print(f"  {name}: batch {batch_size} does not fit the card's memory")
+        else:
+            break
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise SmokeFailure(f"{name}: no batch size of {list(sizes)} fits the card's memory")
+    out["batch_size"] = batch_size
+    return out
+
+
+def steps_at(work, config, name, roots, steps, batch_size, timed):
+    """``outdoor_steps`` at one batch size."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.engines.defaults import batch_condition
+    from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+    from pointcloudpdf_tpu_torch.models.point_transformer_v3 import ptv3
+
+    cfg = config_with_roots(config, roots, {
+        "save_path": os.path.join(work, f"exp_{name}"), "device": DEVICE,
+        "batch_size": batch_size, "num_worker": 4, "evaluate": False, "hooks": [],
+        "seed": SEED})
+    torch.manual_seed(SEED)
+    trainer = TRAINERS.build(dict(type=cfg.get("train", {}).get("type", "DefaultTrainer"),
+                                  cfg=cfg))
+    loader = iter(trainer.train_loader)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, shapes, ties = [], [], None
+    for _ in range(steps):
+        input_dict = next(loader)
+        if isinstance(trainer.model.backbone, ptv3.PointTransformerV3):
+            ties = curve_ties(input_dict["grid_coord"],
+                              np.arange(input_dict["grid_coord"].shape[1])[None]
+                              < input_dict["count"][:, None])
+        trainer.comm_info["input_dict"] = input_dict
+        trainer.run_step()
+        losses.append(float(trainer.comm_info["model_output_dict"]["loss"]))
+        shapes.append((list(input_dict["coord"].shape), batch_condition(input_dict)))
+    no_kernel_launched(read_launches(), f"{name}'s steps")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = dict(losses=losses, peak=peak, shapes=shapes, ties=ties)
+    if timed:
+        batch = trainer.device_batch(input_dict)
+        trainer._dispatch_train(batch)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(3):
+            trainer._dispatch_train(batch)
+        end.record()
+        torch.cuda.synchronize()
+        out["step_ms"] = start.elapsed_time(end) / 3
+        out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {name}: {steps} step(s) at batch {batch_size} on {shapes}: losses "
+          f"{losses}, peak {out['peak']:.2f} GiB"
+          + (f", PT-v3 voxels past cell 1,023 {ties[0]}, their curve cells tied {ties[1]}"
+             if ties else "") + (f", a step {out['step_ms']:.1f} ms" if timed else ""))
+    expect(all(np.isfinite(losses)), f"{name}: finite losses")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def k7_shapes(model, fn):
+    """The (valid queries, C, groups, neighbours) of each K7-eligible
+    attention of ``model`` in one call of ``fn``."""
+    from pointcloudpdf_tpu_torch.models.point_transformer_v2.ptv2 import (
+        GroupedVectorAttention)
+
+    shapes = set()
+
+    def record(module, args, _):
+        feat, _, ref_idx, _, mask = args[:5]
+        shapes.add((int(mask.sum()), feat.shape[-1], module.groups, ref_idx.shape[-1]))
+
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, GroupedVectorAttention)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return sorted(shapes, key=lambda s: (s[1], -s[0]))
+
+
+def serve_outdoor_ptv2(work, roots, n_val):
+    """Phase 18(a): ``tools/test_torch.py`` on the shipped SemanticKITTI
+    PT-v2m2 config over the val scan, seeded random weights through the
+    bridge: K7 and K1 launched as the modules fix them
+    (``SK_PTV2_PER_FORWARD``, ``SK_PTV2_K7_BY_WIDTH``), both K1 kernels, none
+    dropped; then the largest fragment on the plain versions and, on a
+    crop, on the CPU; its forward timed and profiled.  Returns (launches,
+    weight, fragment result)."""
+    import copy
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from _profile_torch import profile_call
+
+    from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
+    from pointcloudpdf_tpu_torch.engines.test import TESTERS
+    from pointcloudpdf_tpu_torch.models import build_model
+    from pointcloudpdf_tpu_torch.models.point_transformer_v2 import ptv2
+    from pointcloudpdf_tpu_torch.ops import _cuda
+
+    root = roots["semantic_kitti"]
+    cfg = config_with_roots(SK_PTV2_CONFIG, roots, {})
+    torch.manual_seed(SEED)
+    weight = os.path.join(work, "model_sk_ptv2.pth")
+    random_jax_checkpoint(weight, build_model(dict(cfg.model)))
+    save_path = os.path.join(work, "exp_sk_ptv2")
+    ptv2.capacity_dropped_points(reset=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    log = run_tool("test_torch.py", [
+        "--config-file", SK_PTV2_CONFIG, "--device", DEVICE, "--options",
+        f"data_root={root}", f"weight={weight}", f"save_path={save_path}",
+        f"data.test.data_root={root}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    launches.update(read_knn_kernels())
+    by_width = launches.pop("gva_by_width")
+    forwards = log.count(", Batch: ")
+    print(f"  tools/test_torch.py (SemSegTester): {wall:.3f} s a scan, {forwards} forwards; "
+          f"launches {launches}, K7 by width {by_width}")
+    expect(forwards > 0, f"{forwards} forwards")
+    for key in ("gva", "knn", "fps", "vector_attention", "st_attention", "kpconv"):
+        want = SK_PTV2_PER_FORWARD.get(key, 0) * forwards
+        expect(launches[key] == want, f"{key} kernel launched {launches[key]} times = "
+                                      f"{SK_PTV2_PER_FORWARD.get(key, 0)} a forward x "
+                                      f"{forwards} forwards")
+    expect(launches.pop("vector_attention_train") == (0, 0), "serving launched no training kernel")
+    # every level is held at the fragment's padded length (the config's
+    # capacity factor 1.0) and K1 takes its kernel by that length
+    # (``KNN_PRUNE_MIN_REFS``): the bound-pruned one at every level here
+    expect(launches["knn_pruned"] > 0, f"K1 launched on the LiDAR scan: "
+           f"{launches['knn_pruned']} bound-pruned, {launches['knn_brute']} brute-force")
+    want = {c: n * forwards for c, n in SK_PTV2_K7_BY_WIDTH.items()}
+    expect(by_width == want, f"K7 launched {by_width} times by width = {want}")
+    dropped = ptv2.capacity_dropped_points(reset=True)
+    expect(dropped == 0, f"{dropped} points dropped by a pooling capacity")
+    pred = np.load(os.path.join(save_path, "result", "08_000000_pred.npy"))
+    expect("Val result: mIoU/mAcc/allAcc" in log and pred.shape == (n_val,)
+           and pred.min() >= 0 and pred.max() < 19,
+           f"pred covers the val scan's {n_val} points, in [0, 19)")
+
+    cfg.merge_from_dict({"weight": weight, "device": DEVICE,
+                         "save_path": os.path.join(work, "exp_sk_ptv2_check")})
+    tester = TESTERS.build(dict(type="SemSegTester", cfg=cfg))
+    fragments = tester.test_dataset[0]["fragment_list"]
+    fragment = max(fragments, key=lambda f: len(f["coord"]))
+    n = len(fragment["coord"])
+    print(f"  {len(fragments)} fragments of up to {n} points")
+    fragment_against_plain(tester, fragment)
+    crop = crop_fragment(fragment, CPU_CROP)
+    card = tester.forward_fragment(crop)["seg_logits"]
+    cpu_model = copy.deepcopy(tester.model).cpu()
+    cpu_batch = {k: v.cpu() if torch.is_tensor(v) else v
+                 for k, v in tester.device_batch(padded_collate_fn([crop])).items()}
+    with torch.inference_mode():
+        cpu = cpu_model(cpu_batch)["seg_logits"][0, :len(card)].numpy()
+    lmax, lerr = float(np.abs(cpu).max()), float(np.abs(card - cpu).max())
+    print(f"  a crop of {len(crop['coord'])} points, card against CPU: logits err "
+          f"{lerr:.3e} (max |logit| {lmax:.3e})")
+    expect(lerr <= TOL_LOGITS * lmax, f"card within {TOL_LOGITS} x max |logit| of the CPU")
+
+    batch = tester.device_batch(padded_collate_fn([fragment]))
+
+    def forward():
+        with torch.inference_mode():
+            tester.forward(batch)
+
+    shapes = k7_shapes(tester.model, forward)
+    ms = cuda_ms(forward, 3)
+    with _cuda.plain_versions():
+        plain_ms = cuda_ms(forward, 1)
+    prof = profile_call(forward, ms, "SemanticKITTI PT-v2m2 fragment forward", top=8)
+    k7_ms = prof["by_kind_ms"].get("K7 grouped vector attention", 0.0)
+    print(f"  the largest fragment ({n} points, bucket {batch['coord'].shape[1]}): kernels "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K7 {k7_ms:.3f} ms ({k7_ms / ms:.3f} of it), "
+          f"idle {prof['idle_share_unprofiled']:.3f}; K7 shapes (valid queries, C, G, "
+          f"neighbours) {shapes}")
+    ties = curve_ties(fragment["grid_coord"][None], np.ones((1, n), bool))
+    return launches, weight, dict(ms=ms, plain_ms=plain_ms, k7_ms=k7_ms, points=n,
+                                  scan_s=wall, forwards=forwards, k7_shapes=shapes,
+                                  val_ties=ties, idle=prof["idle_share_unprofiled"])
+
+
+def run_outdoor_submit(work, roots, weight, n_test):
+    """Phase 18(e): ``tools/test_torch.py`` on the shipped SemanticKITTI
+    PT-v2m2 benchmark-submit config over the test scan (no labels): its
+    ``submit/sequences/11/predictions/000000.label`` holds one uint32 a
+    point, each the raw id of ``learning_map_inv`` of the pred."""
+    from pointcloudpdf_tpu_torch.datasets.semantic_kitti import _TRAIN_TO_RAW
+
+    root = roots["semantic_kitti"]
+    save_path = os.path.join(work, "exp_sk_submit")
+    run_tool("test_torch.py", [
+        "--config-file", SK_SUBMIT_CONFIG, "--device", DEVICE, "--options",
+        f"data_root={root}", f"weight={weight}", f"save_path={save_path}",
+        f"data.test.data_root={root}"])
+    path = os.path.join(save_path, "result", "submit", "sequences", "11", "predictions",
+                        "000000.label")
+    expect(os.path.isfile(path), f"the submission file {os.path.relpath(path, work)}")
+    raw = np.fromfile(path, dtype=np.uint32)
+    pred = np.load(os.path.join(save_path, "result", "11_000000_pred.npy"))
+    lut = np.array([_TRAIN_TO_RAW[c] for c in range(19)], np.uint32)
+    print(f"  submission: {len(raw)} uint32 labels, raw ids {np.unique(raw).tolist()}")
+    expect(len(raw) == n_test and np.array_equal(raw, lut[pred]),
+           f"one raw id a point of the test scan ({n_test}), learning_map_inv of the pred")
+
+
+def run_outdoor_waymo(work, roots):
+    """Phase 18(c): the shipped Waymo SpUNet config's tester on the
+    validation scan (walls at 74 m: past 2,048 cells in x and y at 5 cm),
+    seeded random weights: the largest fragment's voxel maps on the card
+    bit-equal to the CPU's (``check_fragment_maps``), its logits on a band
+    along x (``WAYMO_BAND`` about the sensor's y: the full x extent, few
+    points) within ``TOL_SPUNET_LOGITS`` of the CPU's, nothing dropped."""
+    import torch
+
+    from pointcloudpdf_tpu_torch.datasets.utils import padded_collate_fn
+    from pointcloudpdf_tpu_torch.engines.test import TESTERS
+    from pointcloudpdf_tpu_torch.models import build_model
+
+    cfg = config_with_roots(WAYMO_SPUNET_CONFIG, roots, {})
+    torch.manual_seed(SEED)
+    weight = os.path.join(work, "model_waymo_spunet.pth")
+    random_jax_checkpoint(weight, build_model(dict(cfg.model)))
+    cfg.merge_from_dict({"weight": weight, "device": DEVICE,
+                         "save_path": os.path.join(work, "exp_waymo_check")})
+    tester = TESTERS.build(dict(type="SemSegTester", cfg=cfg))
+    tester.load_weights()
+    fragments = tester.test_dataset[0]["fragment_list"]
+    fragment = max(fragments, key=lambda f: len(f["coord"]))
+    grid = fragment["grid_coord"]
+    extent = (grid.max(0) - grid.min(0) + 1).tolist()
+    print(f"  {len(fragments)} fragments of up to {len(grid)} points; the largest spans "
+          f"{extent} cells")
+    expect(min(extent[:2]) > 2048, "the Waymo scan spans more than 2,048 cells in x and y")
+    # the walls stand at the same distance on both sides of the sensor
+    sensor_y = float(fragment["coord"][:, 1].min() + fragment["coord"][:, 1].max()) / 2
+
+    def band(f):
+        keep = np.abs(f["coord"][:, 1] - sensor_y) <= WAYMO_BAND
+        n = len(keep)
+        part = {k: v[keep] if isinstance(v, np.ndarray) and len(v) == n else v
+                for k, v in f.items()}
+        span = part["grid_coord"][:, 0].max() - part["grid_coord"][:, 0].min() + 1
+        expect(span >= 0.95 * extent[0], f"the band spans {span} of {extent[0]} cells in x")
+        return part
+
+    reset_launches()
+    check_fragment_maps(tester, fragment, tester.device_batch(padded_collate_fn([fragment])),
+                        name="SpUNet (Waymo)", cpu_crop=band)
+    no_kernel_launched(read_launches(), "the Waymo SpUNet forward")
+    return dict(points=len(grid), extent=extent)
+
+
+def run_outdoor_slice(work):
+    """Phase 18: (a) serving the shipped SemanticKITTI PT-v2m2 config, (b)
+    training, evaluating and testing the SemanticKITTI SpUNet config at full
+    width, (c) the Waymo SpUNet config on a full-extent scan, (d) a step of
+    MinkUNet34C, PT-v3m1, the nuScenes SpUNet config and PPT-v1m1 over the
+    three datasets, (e) the SemanticKITTI benchmark-submit tester; over
+    ``outdoor_data``'s scans."""
+    import re
+
+    import torch
+
+    from pointcloudpdf_tpu_torch.ops import voxel
+
+    walls = {}
+    t0 = time.perf_counter()
+    roots, counts = outdoor_data(work)
+    walls["data"] = time.perf_counter() - t0
+
+    print("  (a) tools/test_torch.py on the shipped SemanticKITTI PT-v2m2 config")
+    t0 = time.perf_counter()
+    serving, weight, served = serve_outdoor_ptv2(work, roots, counts["val"])
+    walls["a"] = time.perf_counter() - t0
+
+    print("  (b) tools/train_torch.py on the SemanticKITTI SpUNet config at full width, "
+          "then the tester")
+    t0 = time.perf_counter()
+    root = roots["semantic_kitti"]
+    log, batch_size, iters, wall, launches, peak, save_path = train_with_fallback(
+        work, SK_SPUNET_CONFIG, "sk_spunet", root, 1, [f"data.test.data_root={root}"],
+        subsample=False, sizes=SPUNET_TRAIN_BATCHES, samples=SK_TRAIN_LINKS)
+    dropped = voxel.capacity_dropped_points(reset=True)
+    no_kernel_launched(launches, "SpUNet training and its evaluator")
+    losses = train_log_losses(log, iters)["loss"]
+    print(f"  losses {losses}; dropped by the level capacities {dropped}")
+    for line in re.findall(r"Val result: [^\n]*", log):
+        print("  " + line)
+    expect("Val result: mIoU/mAcc/allAcc" in log, "the evaluator ran")
+    expect(dropped == 0, f"{dropped} points dropped by the level capacities")
+    test_save = os.path.join(work, "exp_sk_spunet_test")
+    run_tool("test_torch.py", [
+        "--config-file", SK_SPUNET_CONFIG, "--device", DEVICE, "--options",
+        f"data_root={root}", f"weight={os.path.join(save_path, 'model', 'model_last.pth')}",
+        f"save_path={test_save}", f"data.test.data_root={root}"])
+    pred = np.load(os.path.join(test_save, "result", "08_000000_pred.npy"))
+    expect(pred.shape == (counts["val"],),
+           f"tools/test_torch.py tested the trainer's checkpoint: pred of {counts['val']} points")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spunet = outdoor_steps(work, SK_SPUNET_CONFIG, "SemanticKITTI SpUNet", roots,
+                           sizes=(batch_size,), timed=True)
+    spunet.update(batch_size=batch_size, train_peak=peak, train_wall=wall)
+    print(f"  SemanticKITTI SpUNet: training at batch {batch_size} (shipped 12), peak "
+          f"{peak:.2f} GiB; a step {spunet['step_ms']:.1f} ms, peak {spunet['peak']:.2f} GiB")
+    walls["b"] = time.perf_counter() - t0
+
+    print("  (c) the Waymo SpUNet config on a full-extent scan")
+    t0 = time.perf_counter()
+    waymo = run_outdoor_waymo(work, roots)
+    walls["c"] = time.perf_counter() - t0
+
+    print("  (d) a step of MinkUNet34C, PT-v3m1, nuScenes SpUNet, PPT-v1m1 over the three "
+          "datasets")
+    t0 = time.perf_counter()
+    steps = {name: outdoor_steps(work, config, name, roots, steps=n)
+             for name, config, n in (("MinkUNet34C", SK_MINK_CONFIG, 1),
+                                     ("SemanticKITTI PT-v3m1", SK_PTV3_CONFIG, 1),
+                                     ("nuScenes SpUNet", NU_SPUNET_CONFIG, 1),
+                                     ("PPT-v1m1", SK_PPT_CONFIG, 3))}
+    conditions = [c for _, c in steps["PPT-v1m1"]["shapes"]]
+    expect(sorted(conditions) == ["SemanticKITTI", "Waymo", "nuScenes"],
+           f"PPT-v1m1's three steps drew one batch of each dataset: {conditions}")
+    walls["d"] = time.perf_counter() - t0
+
+    print("  (e) the SemanticKITTI PT-v2m2 benchmark-submit tester")
+    t0 = time.perf_counter()
+    run_outdoor_submit(work, roots, weight, counts["test"])
+    walls["e"] = time.perf_counter() - t0
+    print("  phase 18 walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return serving, dict(served=served, spunet=spunet, waymo=waymo, steps=steps)
+
+
 def main() -> int:
     if not os.path.isfile(os.path.join(ROOT, "pointcloudpdf_tpu_torch",
                                        "__init__.py")):
@@ -4492,6 +5201,24 @@ def main() -> int:
               "training the shipped ScanNet OA-CNNs config")
         pg, oacnns = phase("17", run_insseg_slice, work)
         window["oacnns"] = oacnns
+        print("[18] outdoor LiDAR: serving the shipped SemanticKITTI PT-v2m2 config, training "
+              "its SpUNet config, Waymo SpUNet on a full-extent scan, steps of MinkUNet34C, "
+              "PT-v3m1, nuScenes SpUNet and PPT-v1m1 over the three datasets, the "
+              "benchmark-submit tester")
+        outdoor_serving, outdoor = phase("18", run_outdoor_slice, work)
+        served, sk_step = outdoor["served"], outdoor["spunet"]
+        print(f"  {card}: SemanticKITTI PT-v2m2 serving {served['scan_s']:.2f} s a scan "
+              f"({served['forwards']} forwards), {served['ms']:.2f} ms a fragment of "
+              f"{served['points']} points (plain {served['plain_ms']:.2f}), K7 "
+              f"{served['k7_ms']:.3f} ms of it, idle {served['idle']:.3f}; SpUNet train step "
+              f"{sk_step['step_ms']:.1f} ms at batch {sk_step['batch_size']} (shipped 12), "
+              f"peak {sk_step['peak']:.2f} GiB (training run {sk_step['train_peak']:.2f}); "
+              f"peaks of the other steps "
+              f"{ {k: (v['batch_size'], round(v['peak'], 2)) for k, v in outdoor['steps'].items()} }"
+          f" (batch, GiB); PT-v3 "
+              f"voxels past cell 1,023 and tied curve cells: the val scan's fragment "
+              f"{served['val_ties']}, the step's batch "
+              f"{outdoor['steps']['SemanticKITTI PT-v3m1']['ties']}")
         print(f"  {card}: PointGroup train step {pg['step_ms']:.1f} ms at batch "
               f"{pg['batch_size']} (shipped 12), {pg['shape']}, peak {pg['peak']:.2f} GiB "
               f"(training run {pg['train_peak']:.2f}), idle {pg['idle']:.3f}, indexing "
@@ -4507,8 +5234,9 @@ def main() -> int:
                   f"{served['busy_ms']:.2f} ms, idle {served['idle']:.3f}, levels valid "
                   f"{served['valid_rows']} held {served['held_rows']}; train step "
                   f"{step['step_ms']:.1f} ms at batch {step['batch_size']} (shipped 12), "
-                  f"{step['shape']}, peak {step['peak']:.2f} GiB (training run "
-                  f"{step['train_peak']:.2f}), idle {step['idle']:.3f}, levels valid "
+                  f"{step['shape']}, peak {step['peak']:.2f} GiB (training run at "
+                  f"{step['train_batch_size']}: {step['train_peak']:.2f}), idle "
+                  f"{step['idle']:.3f}, levels valid "
                   f"{step['valid_rows']} held {step['held_rows']}, indexing backward "
                   f"share {step['share']:.4f}")
         served = ppt["serving"]
@@ -4543,7 +5271,7 @@ def main() -> int:
           f"{ptv2_batch} ({ptv2_peak:.2f} GiB)")
 
     main_runs = (launches, serving, st_serving, ptv2_serving, st_train, incr_train,
-                 ptv2_train, ddp_train, swin_serving, swin_train)
+                 ptv2_train, ddp_train, swin_serving, swin_train, outdoor_serving)
     n = sum(run[key] for run in (swin_serving, swin_train)
             for key in ("knn_pruned", "knn_brute"))
     expect(swin_serving["knn"] > 0 and n > swin_serving["knn"],
@@ -4595,7 +5323,9 @@ def main() -> int:
         # (phase 16(b): Swin3D's training, evaluator and tester forwards),
         # launches_ddp_train (phase 12(a): both
         # ranks' counts, each set to 0 just before its steps; the
-        # one-process reference beside them is not counted); library_ms: no
+        # one-process reference beside them is not counted),
+        # launches_outdoor_serving (phase 18(a): the SemanticKITTI PT-v2m2
+        # tester over a LiDAR scan; also in launches_serving); library_ms: no
         # single PyTorch call
         # computes any of these functions (cdist + topk, a loop of argmax, a
         # chain of gathers and matmuls; scaled_dot_product_attention has no
@@ -4608,10 +5338,12 @@ def main() -> int:
         n_pt, n_st = serving.get(key, 0), st_serving.get(key, 0)
         n_v2 = ptv2_serving.get(key, 0)
         n_swin, n_swin_train = swin_serving.get(key, 0), swin_train.get(key, 0)
+        n_outdoor = outdoor_serving.get(key, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": (n_train + n_pt + n_st + n_v2 + n_st_train
-                                     + n_incr + n_v2_train + n_ddp + n_swin + n_swin_train),
+                                     + n_incr + n_v2_train + n_ddp + n_swin + n_swin_train
+                                     + n_outdoor),
                         "launches_train": n_train,
                         "launches_st_train": n_st_train,
                         "launches_incr_train": n_incr,
@@ -4622,7 +5354,8 @@ def main() -> int:
                         "launches_ptv2_serving": n_v2,
                         "launches_swin3d_serving": n_swin,
                         "launches_swin3d_train": n_swin_train,
-                        "launches_serving": n_pt + n_st + n_v2 + n_swin,
+                        "launches_outdoor_serving": n_outdoor,
+                        "launches_serving": n_pt + n_st + n_v2 + n_swin + n_outdoor,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None,

@@ -5,3 +5,6 @@ from .defaults import DefaultDataset, ConcatDataset, load_scene
 from .s3dis import S3DISDataset
 from .scannet import ScanNetDataset, ScanNet200Dataset
 from .structured3d import Structured3DDataset
+from .semantic_kitti import SemanticKITTIDataset
+from .nuscenes import NuScenesDataset
+from .waymo import WaymoDataset

@@ -158,6 +158,34 @@ class TesterBase:
             if isinstance(v, torch.Tensor) and v.dim() >= 2
         }
 
+    def write_submit(self, save_path, data_name, pred):
+        """The benchmark submission file of one scene, by the test dataset's
+        type, byte for byte the JAX tester's: ScanNet / ScanNet200 class
+        ids as text, SemanticKITTI raw ids (``learning_map_inv``) as uint32,
+        nuScenes ``pred + 1`` as uint8; other datasets write none."""
+        ds_type = self.cfg.data.test.type
+        if ds_type in ("ScanNetDataset", "ScanNet200Dataset"):
+            submit_dir = make_dirs(os.path.join(save_path, "submit"))
+            np.savetxt(os.path.join(submit_dir, f"{data_name}.txt"),
+                       self.test_dataset.class2id[pred].reshape(-1, 1), fmt="%d")
+        elif ds_type == "SemanticKITTIDataset":
+            sequence_name, frame_name = data_name.split("_")
+            submit_dir = make_dirs(os.path.join(
+                save_path, "submit", "sequences", sequence_name, "predictions"))
+            inv = self.test_dataset.learning_map_inv
+            # a lookup array over the table's keys (the JAX tester's
+            # np.vectorize of the dict gives the same int64 values)
+            low = min(inv)
+            lut = np.zeros(max(inv) - low + 1, np.int64)
+            for key, raw in inv.items():
+                lut[key - low] = raw
+            raw = lut[pred.astype(np.int64) - low]
+            raw.astype(np.uint32).tofile(os.path.join(submit_dir, f"{frame_name}.label"))
+        elif ds_type == "NuScenesDataset":
+            submit_dir = make_dirs(os.path.join(save_path, "submit", "lidarseg", "test"))
+            (pred + 1).astype(np.uint8).tofile(
+                os.path.join(submit_dir, f"{data_name}_lidarseg.bin"))
+
     def scene_indices(self):
         """This rank's scenes: every world-th from its rank."""
         return range(comm.get_rank(), len(self.test_dataset),
@@ -232,6 +260,7 @@ class SemSegTester(TesterBase):
                 f"{segment.size} Batch {batch_time.val:.3f} "
                 f"({batch_time.avg:.3f}) Accuracy {acc:.4f} mIoU {iou:.4f}"
             )
+            self.write_submit(save_path, data_name, pred)
         record = self.gather_records(record)
         if record is not None:
             self.finalize(record, save_path)
@@ -377,6 +406,7 @@ class OpenSegTester(TesterBase):
                 f"auroc {auroc if auroc is None else format(auroc, '.4f')} "
                 f"({auroc_meter.avg:.4f})"
             )
+            self.write_submit(save_path, data_name, pred)
         record = self.gather_records(record)
         if record is not None:
             self.finalize(record)

@@ -107,30 +107,42 @@ class Level:
         self.order_rows = (order + base).reshape(order.shape[0], b * n)
         self.inverse_rows = (inverse + base).reshape(inverse.shape[0], b * n)
         self._rpe = {}
+        self._valid = None
+
+    def patches(self, patch_size: int) -> int:
+        """The patches of ``patch_size`` rows that hold a valid row in some
+        sample: every sort puts a sample's padded rows last, so the patches
+        past these hold padding alone.  One host synchronisation a level."""
+        if self._valid is None:
+            self._valid = int(self.mask.sum(1).max())
+        return -(-self._valid // patch_size)
 
     def rpe_index(self, oi: int, patch_size: int) -> torch.Tensor:
-        """(B, P, K, K) int32: for query k and key m of a patch in order
-        ``oi``, the row of the (x, y, z) offset ``g_k - g_m`` (each axis
-        clipped to +-``rpe_bound``) in the RPE's table of every offset
-        triple.  The index depends on the level's grid and order alone, so
-        the level's blocks share it (and the backward's saved copy)."""
+        """(B, P, K, K) int32 over the level's first P = ``patches(K)``
+        patches: for query k and key m of a patch in order ``oi``, the row
+        of the (x, y, z) offset ``g_k - g_m`` (each axis clipped to
+        +-``rpe_bound``) in the RPE's table of every offset triple.  The
+        index depends on the level's grid and order alone, so the level's
+        blocks share it (and the backward's saved copy)."""
         key = (oi, patch_size)
         if key not in self._rpe:
-            self._rpe[key] = rpe_index(self.grid, self.mask, self.perm[oi], patch_size)
+            self._rpe[key] = rpe_index(self.grid, self.mask, self.perm[oi], patch_size,
+                                       self.patches(patch_size))
         return self._rpe[key]
 
 
 def rpe_index(grid: torch.Tensor, mask: torch.Tensor, perm: torch.Tensor,
-              patch_size: int) -> torch.Tensor:
+              patch_size: int, patches: Optional[int] = None) -> torch.Tensor:
     """(B, P, K, K) int32 rows of the RPE's offset-triple table for the
-    patches of ``grid`` (B, N, 3) sorted by ``perm`` (B, N)
-    (``offset_index`` at ``rpe_bound(patch_size)``)."""
+    first ``patches`` (default all) patches of ``grid`` (B, N, 3) sorted by
+    ``perm`` (B, N) (``offset_index`` at ``rpe_bound(patch_size)``)."""
     b, n = perm.shape
     k = patch_size
     n_pad = -(-n // k) * k
+    p = n_pad // k if patches is None else patches
     g = grid.gather(1, perm[..., None].expand(-1, -1, 3))
-    g = F.pad(g.to(torch.int32), (0, 0, 0, n_pad - n)).reshape(b, n_pad // k, k, 3)
-    valid = F.pad(mask.gather(1, perm), (0, n_pad - n)).reshape(b, n_pad // k, k)
+    g = F.pad(g.to(torch.int32), (0, 0, 0, n_pad - n))[:, :p * k].reshape(b, p, k, 3)
+    valid = F.pad(mask.gather(1, perm), (0, n_pad - n))[:, :p * k].reshape(b, p, k)
     return offset_index(g, valid, rpe_bound(k))
 
 
@@ -209,7 +221,11 @@ class SerializedAttention(nn.Module):
     """Masked dense multi-head attention over curve-order patches: qkv, a
     gather into the order, padding to a whole number of patches, softmax
     inside each patch (logits in f32, also under autocast; masked keys at
-    -1e9), a gather back, ``proj``, zeros at padded rows."""
+    -1e9), a gather back, ``proj``, zeros at padded rows.  Only the level's
+    patches that hold a valid row run (``Level.patches``): the others hold
+    padding alone, whose rows come out 0 either way.  A level is held at
+    the input's padded length (the JAX module's capacities), so on a LiDAR
+    scan most of a deep level's patches are such."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int,
                  qkv_bias: bool = True, enable_rpe: bool = False):
@@ -225,10 +241,10 @@ class SerializedAttention(nn.Module):
         b, n = level.mask.shape
         c, h, k = self.channels, self.num_heads, self.patch_size
         n_pad = -(-n // k) * k
-        p = n_pad // k
+        p = level.patches(k)
         qkv = self.qkv(feat).reshape(b * n, 3 * c).index_select(0, level.order_rows[oi])
-        qkv = F.pad(qkv.reshape(b, n, 3 * c), (0, 0, 0, n_pad - n))
-        keys = F.pad(level.mask.gather(1, level.perm[oi]), (0, n_pad - n))
+        qkv = F.pad(qkv.reshape(b, n, 3 * c), (0, 0, 0, n_pad - n))[:, :p * k]
+        keys = F.pad(level.mask.gather(1, level.perm[oi]), (0, n_pad - n))[:, :p * k]
         q, kk, v = qkv.reshape(b, p, k, 3, h, c // h).permute(3, 0, 1, 4, 2, 5)
         with torch.autocast(feat.device.type, enabled=False):
             logits = (q.float() * (c // h) ** -0.5) @ kk.float().transpose(-1, -2)
@@ -238,7 +254,8 @@ class SerializedAttention(nn.Module):
         # a fully masked patch's rows are uniform over masked keys; those
         # rows are padding, zeroed below
         out = torch.softmax(logits, dim=-1).to(v.dtype) @ v       # (B, P, H, K, hd)
-        out = out.permute(0, 1, 3, 2, 4).reshape(b, n_pad, c)[:, :n]
+        out = F.pad(out.permute(0, 1, 3, 2, 4).reshape(b, p * k, c),
+                    (0, 0, 0, n_pad - p * k))[:, :n]
         out = out.reshape(b * n, c).index_select(0, level.inverse_rows[oi])
         return where_valid(level.mask, self.proj(out.reshape(b, n, c)))
 

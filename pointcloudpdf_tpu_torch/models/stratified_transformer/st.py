@@ -38,7 +38,7 @@ from ...ops.geometry import (ball_query, divide_exact, gather_rows,
 from ...ops.kpconv import kpconv, kpconv_plain
 from ...ops.sampling import blocked_farthest_point_sampling
 from ...ops.st_attention import st_attention, st_attention_plain
-from ...ops.voxel import pack_grid
+from ...ops.voxel import pack_grid32
 from ..builder import MODELS
 from ..norm import MaskedBatchNorm
 from ..utils.structure import Points, where_valid
@@ -57,7 +57,7 @@ def _window_ids(coord: torch.Tensor, mask: torch.Tensor, window_size: float,
     g = torch.clamp(torch.floor(divide_exact(pos, window_size)), 0, 2047
                     ).to(torch.int32)
     cap = torch.tensor([2047, 2047, 1023], dtype=torch.int32, device=g.device)
-    return pack_grid(torch.minimum(g, cap))
+    return pack_grid32(torch.minimum(g, cap))
 
 
 def kpconv_kernel_points() -> np.ndarray:

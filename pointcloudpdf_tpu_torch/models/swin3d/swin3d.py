@@ -51,8 +51,8 @@ from torch.nn import functional as F
 
 from ...ops.geometry import divide_exact, knn
 from ...ops.serialization import morton_encode
-from ...ops.voxel import (check_grid_bound, flatten_neighbor_rows, flatten_slot_map,
-                          neighbor_table, pack_grid, scatter_mean_to_parent,
+from ...ops.voxel import (KEY32_BITS, check_grid_bound, flatten_neighbor_rows,
+                          flatten_slot_map, neighbor_table, pack_grid32, scatter_mean_to_parent,
                           table_rulebook, unique_parents)
 from ..builder import MODELS
 from ..norm import _bn_factory
@@ -86,7 +86,7 @@ def window_sort(grid: torch.Tensor, mask: torch.Tensor, window_size: int, shift:
     g = grid.long()
     wgrid = torch.div(g + window_size // 2 if shift else g, window_size,
                       rounding_mode="floor")
-    win = torch.where(mask, pack_grid(wgrid.clamp(min=0)),
+    win = torch.where(mask, pack_grid32(wgrid.clamp(min=0)),
                       torch.full_like(g[..., 0], _INVALID_WINDOW))
     order = torch.argsort((win << MORTON_SHIFT) | morton_encode(g), dim=-1, stable=True)
     rows = torch.arange(mask.shape[1], device=grid.device).expand_as(order)
@@ -501,7 +501,9 @@ class Swin3DUNet(nn.Module):
         included).  They depend on the voxels alone."""
         grid = input_dict["grid_coord"]
         mask = input_dict["mask"].to(torch.bool)
-        check_grid_bound(grid, mask)
+        # the window ids keep the JAX package's 32-bit keys (``window_sort``),
+        # so the grid keeps their budget
+        check_grid_bound(grid, mask, KEY32_BITS)
         xyz = grid.float()
         levels = [SwinLevel(grid.to(torch.int32), mask, xyz, self.signal(input_dict, xyz))]
         for _ in range(len(self.layers) + self.layer_start - 1):

@@ -2,10 +2,15 @@
 of ``pointcloudpdf_tpu/ops/voxel.py``).
 
 A sparse tensor is a padded list: ``grid`` (B, N, 3) non-negative integer
-voxel coordinates and ``mask`` (B, N).  Keys pack as x(11) y(11) z(10)
-bits, the JAX package's uint32 layout, held here in int64 (the same values:
-equality and order carry over); the invalid key lies above every valid one.
-``check_grid_bound`` holds a grid to that bit budget.
+voxel coordinates and ``mask`` (B, N).  Keys pack as x(20) y(20) z(20)
+bits in int64, the invalid key above every valid one.  The JAX package
+packs x(11) y(11) z(10) bits into uint32 and wraps past 2,048 cells in x
+or y, which a LiDAR scan at 5 cm reaches (Waymo clips at +-75.2 m, 3,008
+cells; nuScenes clips nowhere).  Both packings order keys x-major,
+lexicographically, so inside the JAX budget every sort, slot and table
+here is the JAX one's.  ``check_grid_bound`` holds a grid to a bit budget
+(this one by default).  Window ids that are compared with the JAX
+package's values keep its layout (``pack_grid32``, ``KEY32_BITS``).
 
 The JAX ``neighbor_table`` looks voxels up in a multi-round scatter hash
 (``build_hash_table`` / ``lookup_hash``), a TPU workaround that leaves
@@ -28,33 +33,47 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-X_BITS, Y_BITS, Z_BITS = 11, 11, 10
-GRID_LIMITS = (1 << X_BITS, 1 << Y_BITS, 1 << Z_BITS)
-INVALID_KEY = 1 << 32
+KEY_BITS = (20, 20, 20)
+X_BITS, Y_BITS, Z_BITS = KEY_BITS
+GRID_LIMITS = tuple(1 << b for b in KEY_BITS)
+INVALID_KEY = 1 << sum(KEY_BITS)
+# the JAX package's uint32 layout
+KEY32_BITS = (11, 11, 10)
 # offset queries a chunk of ``neighbor_table`` (its int64 temporaries)
 QUERY_CHUNK = 1 << 23
 
 
-def pack_grid(grid: torch.Tensor) -> torch.Tensor:
-    """(..., 3) non-negative integer voxel coords -> (...) int64 keys."""
+def _pack(grid: torch.Tensor, bits) -> torch.Tensor:
     g = grid.long()
-    return ((g[..., 0] << (Y_BITS + Z_BITS)) | (g[..., 1] << Z_BITS)
-            | g[..., 2])
+    return (g[..., 0] << (bits[1] + bits[2])) | (g[..., 1] << bits[2]) | g[..., 2]
 
 
-def check_grid_bound(grid: torch.Tensor, mask: torch.Tensor) -> None:
+def pack_grid(grid: torch.Tensor) -> torch.Tensor:
+    """(..., 3) non-negative integer voxel coords in [0, 2^20) -> (...)
+    int64 keys."""
+    return _pack(grid, KEY_BITS)
+
+
+def pack_grid32(grid: torch.Tensor) -> torch.Tensor:
+    """(..., 3) coords in [0, 2048) x [0, 2048) x [0, 1024) -> (...) int64
+    keys of the JAX package's uint32 values (x 11, y 11, z 10 bits)."""
+    return _pack(grid, KEY32_BITS)
+
+
+def check_grid_bound(grid: torch.Tensor, mask: torch.Tensor, bits=KEY_BITS) -> None:
     """Raise ``ValueError`` unless every valid voxel of ``grid`` lies in
-    [0, 2048) x [0, 2048) x [0, 1024), the keys' bit budget: past it the
-    JAX package's uint32 keys wrap.  One host synchronisation."""
+    the bit budget ``bits`` (x, y, z; by default the keys', [0, 2^20) an
+    axis).  One host synchronisation."""
+    limits = tuple(1 << b for b in bits)
     m = mask.to(torch.bool)[..., None]
     g = torch.where(m, grid, torch.zeros_like(grid)).reshape(-1, 3)
     lo, hi = torch.stack([g.amin(0), g.amax(0)]).tolist()
-    if min(lo) < 0 or any(h >= lim for h, lim in zip(hi, GRID_LIMITS)):
+    if min(lo) < 0 or any(h >= lim for h, lim in zip(hi, limits)):
         raise ValueError(
             f"voxel grid from {tuple(lo)} to {tuple(hi)} (extent "
             f"{tuple(h - l + 1 for l, h in zip(lo, hi))} cells) is outside "
-            f"[0, 2048) x [0, 2048) x [0, 1024), the voxel keys' x 11, y 11, "
-            f"z 10 bits")
+            f"{' x '.join(f'[0, {lim})' for lim in limits)}, the voxel keys' "
+            f"x {bits[0]}, y {bits[1]}, z {bits[2]} bits")
 
 
 def unique_parents(grid: torch.Tensor, mask: torch.Tensor, stride: int,

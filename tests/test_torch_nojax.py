@@ -385,6 +385,89 @@ print("NOJAX_OK")
 """
 
 
+_OUTDOOR_SCRIPT = r"""
+import importlib.abc, logging, os, sys, tempfile
+
+class _NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax"):
+            raise ImportError(f"{name} is blocked in this test")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+sys.path.insert(0, ROOT)
+
+import numpy as np
+import torch
+
+import chip_smoke
+from pointcloudpdf_tpu_torch.datasets import (NuScenesDataset, SemanticKITTIDataset,
+                                              WaymoDataset, build_dataset)
+from pointcloudpdf_tpu_torch.engines.train import TRAINERS
+
+warnings = []
+handler = logging.Handler()
+handler.emit = lambda record: warnings.append(record.getMessage())
+handler.setLevel(logging.WARNING)
+logging.getLogger("pointcloudpdf_tpu_torch").addHandler(handler)
+
+work = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+roots = {name: os.path.join(work, name) for name in ("semantic_kitti", "nuscenes", "waymo")}
+
+def scan(name):
+    return chip_smoke.lidar_scan(rng, name, beams=8, steps=64)
+
+for seq, labels in ((0, True), (8, True), (11, False)):
+    chip_smoke.write_semantic_kitti(roots["semantic_kitti"], seq, 0, scan("SemanticKITTI"),
+                                    rng, labels=labels)
+for split in ("train", "val", "test"):
+    chip_smoke.write_nuscenes(roots["nuscenes"], split, [scan("nuScenes")], rng,
+                              labels=split != "test")
+for split in ("training", "validation"):
+    chip_smoke.write_waymo(roots["waymo"], split, "segment-0", 0, scan("Waymo"), rng)
+for cls, root, split in ((SemanticKITTIDataset, "semantic_kitti", "val"),
+                         (NuScenesDataset, "nuscenes", "val"), (WaymoDataset, "waymo", "training")):
+    item = cls(split=split, data_root=roots[root])[0]
+    assert item["coord"].shape == (512, 3) and item["strength"].shape == (512, 1)
+
+configs = sorted(os.path.join(d, f) for d in ("semantic_kitti", "nuscenes", "waymo")
+                 for f in os.listdir(os.path.join(ROOT, "configs", d)) if "spvcnn" not in f)
+assert len(configs) == 17, configs
+for rel in configs:
+    cfg = chip_smoke.config_with_roots(os.path.join(ROOT, "configs", rel), roots, {
+        "device": "cpu", "batch_size": 1, "num_worker": 0, "hooks": [],
+        "save_path": os.path.join(work, "exp")})
+    trainer = TRAINERS.build(dict(type=cfg.get("train", {}).get("type", "DefaultTrainer"),
+                                  cfg=cfg))
+    assert len(trainer.train_loader) >= 1 and trainer.optimizer and trainer.scheduler
+    test = build_dataset(dict(cfg.data.test)) if "test" in cfg.data else None
+    print(rel, type(trainer).__name__, cfg.model.type,
+          cfg.model.get("backbone", {}).get("type"), sum(p.numel() for p in
+                                                       trainer.model.parameters()),
+          len(test) if test is not None else None)
+for w in sorted(set(warnings)):
+    print("WARNING", w)
+assert not any(m.split(".")[0] in ("jax", "flax") for m in sys.modules)
+print("OUTDOOR_NOJAX_OK")
+"""
+
+
+def test_outdoor_configs_build_without_jax():
+    """With ``jax`` blocked: the SemanticKITTI, nuScenes and Waymo datasets
+    read scans written in their layouts, and every one of the 17 shipped
+    outdoor configs (all of ``configs/{semantic_kitti,nuscenes,waymo}`` but
+    SPVCNN's) builds its trainer over them: model at full width, datasets
+    (a PPT config's three through ``MultiDatasetTrainer``), optimizer and
+    schedule, and its test dataset."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + _OUTDOOR_SCRIPT],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "OUTDOOR_NOJAX_OK" in proc.stdout
+
+
 def test_port_runs_without_jax():
     env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.run(

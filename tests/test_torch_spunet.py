@@ -269,12 +269,14 @@ def test_level_maps_and_flattening_match_jax():
 
 
 def test_voxel_key_bound():
-    """A grid past the bit budget (x or y at 2048, z at 1024, or negative)
-    raises and names the grid's extent; the last cell in bounds passes;
-    padded rows do not count."""
+    """A grid past the bit budget (any axis at 2^20, or negative) raises
+    and names the grid's extent; the last cell in bounds passes; x = 2048,
+    past the JAX package's 11 bits, passes and the forward runs; padded
+    rows do not count."""
     batch = scene(3)
     model = build_model(dict(BACKBONE)).eval()
-    for axis, limit in ((0, 2048), (1, 2048), (2, 1024), (0, -1)):
+    top = 1 << 20
+    for axis, limit in ((0, top), (1, top), (2, top), (0, -1)):
         bad = dict(batch, grid_coord=batch["grid_coord"].copy())
         bad["grid_coord"][1, 5, axis] = limit
         with pytest.raises(ValueError, match=r"extent .* cells\) is outside"):
@@ -282,11 +284,16 @@ def test_voxel_key_bound():
         with pytest.raises(ValueError, match="voxel grid"):
             with torch.inference_mode():
                 model(inputs(bad))
-        bad["grid_coord"][1, 5, axis] = 2047 if axis < 2 else 1023
+        bad["grid_coord"][1, 5, axis] = top - 1
         if limit > 0:
             voxel.check_grid_bound(*tt(bad["grid_coord"], bad["mask"]))
+    wide = dict(batch, grid_coord=batch["grid_coord"].copy())
+    wide["grid_coord"][1, 5, 0] = 2048
+    voxel.check_grid_bound(*tt(wide["grid_coord"], wide["mask"]))
+    with torch.inference_mode():
+        assert torch.isfinite(model(inputs(wide))).all()
     pad = batch["grid_coord"].copy()
-    pad[1, -1] = (4000, 4000, 4000)
+    pad[1, -1] = (2 * top, 2 * top, 2 * top)
     voxel.check_grid_bound(*tt(pad, batch["mask"]))
 
 
